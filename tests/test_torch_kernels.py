@@ -1,0 +1,61 @@
+"""The CUDA correlation kernels against their plain version, on the card.
+
+This file imports neither jax nor lfr_tpu, so it also runs where they are
+not installed:
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py -m cuda
+
+Without a CUDA device every test skips.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from lfr_tpu_torch.ops import correlation
+
+#: bf16 output: values <= 1 round by at most 2^-9; the rest is f32 order.
+ATOL = 8e-3
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc; run on the card")
+    return torch.device("cuda")
+
+
+def _features(seed, b, device):
+    rng = np.random.default_rng(seed)
+    f = rng.standard_normal((2, b, 289, 128)).astype(np.float32)
+    f /= np.linalg.norm(f, axis=-1, keepdims=True)
+    return (torch.from_numpy(x).to(device, torch.bfloat16) for x in f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 37])
+@pytest.mark.parametrize("sym", [True, False])
+def test_kernel_matches_plain_on_card(cuda_device, sym, batch):
+    fr, ft = _features(3, batch, cuda_device)
+    correlation.reset_launches()
+    got = correlation.corr_views(fr, ft, sym=sym)
+    torch.cuda.synchronize()
+    want = correlation.correlation_reference(fr, ft)
+    got = got if sym else (got,)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and tuple(g.shape) == (batch, 289, 289)
+        assert (g.float() - w).abs().max().item() <= ATOL
+    assert correlation.LAUNCHES == {"corr_sym": int(sym), "corr_asym": int(not sym)}
+
+
+@pytest.mark.cuda
+def test_kernel_wrapper_raises_on_card(cuda_device):
+    fr, ft = _features(4, 2, cuda_device)
+    flat = torch.empty(2 * 289 * 128 + 1, dtype=torch.bfloat16, device=cuda_device)
+    misaligned = flat[1:].view(2, 289, 128)
+    with pytest.raises(ValueError, match="aligned"):
+        correlation.correlation_asym(misaligned, ft)
+    with pytest.raises(TypeError, match="bfloat16"):
+        correlation.correlation_sym(fr.float(), ft.float())
+    with pytest.raises(ValueError, match="must match"):
+        correlation.correlation_asym(fr.cpu(), ft)
