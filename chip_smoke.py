@@ -9,27 +9,40 @@ Phases, each printing its seconds; any failure ends the run non-zero:
    the TF32 settings.
 2. build:   nvcc builds lfr_tpu_torch/csrc/correlation.cu for sm_90a into
    lfr_tpu_torch/_build/ (plain-C library loaded with ctypes).
-3. kernels: each correlation kernel at its main-path shape (asym B=4096,
-   sym B=2048) on seeded inputs, held against its plain PyTorch version;
-   kernel, plain-version and one-PyTorch-call (``library_ms``) times from
-   CUDA events, beside the least time the card could take (``bound_ms``).
+3. kernels: each of the four correlation kernels on seeded inputs (asym,
+   nonorm and matmul at B=4096, sym at B=2048), held against its plain
+   PyTorch version; kernel, plain-version and one-PyTorch-call
+   (``library_ms``) times from CUDA events, beside the least time the card
+   could take (``bound_ms``).
 4. slice:   TwoViewRefiner on bench.py's workload (480x640 shifted pair,
    2048 matches, batch 2048, PANet weights from weights/panet_holdout.msgpack
    read by the port's own reader), fine_mode "crop" then "grid": one warm-up
-   and 3 timed calls each, with the launch counters set to 0 just before and
-   read just after; the first 64 matches are held against the same port on
-   the CPU in f32.
-5. the kernel list as one JSON line, the card's name and power limit, and
+   and 3 timed calls each; the first 64 matches are held against the same
+   port on the CPU in f32.  Its launches count for the path "two_view".
+5. match_graph: compute_match_graph on a scene written to a temporary
+   directory by synthetic.match_graph_workload: 8 PNG views of 1334x2000
+   (1067x1600 after the sift caps), 4096 planted keypoints each, the 28
+   pairs of an exhaustive list, fine_mode "crop", batches of 2048.  The
+   written MatchingFile is decoded and checked against the scene's ground
+   truth, the port's CPU matchers and a CPU f32 refinement of 64 matches.
+6. variants: scripts/bench_corr_variants_torch.py's run (asym, nonorm and
+   matmul kernels and two PyTorch calls at B=4096).
+7. the kernel list as one JSON line, the card's name and power limit, and
    the result line ``{"ok": true, "device": {...}}`` last.
+
+Each path's kernel launches are counted from 0 just before it runs and read
+just after; every kernel must be launched on at least one path.
 
 Imports torch, numpy and lfr_tpu_torch only.
 """
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -56,6 +69,11 @@ SLICE_ATOL = 0.008
 #: refined flow at each keypoint should be near 0; the CPU f32 port gives a
 #: median of 0.09 px (crop) and 0.13 px (grid) on the first 64 matches.
 CENTER_FLOW_MEDIAN_PX = 0.5
+
+#: A match that the card's and the CPU's matchers disagree on must sit
+#: within this of a decision (a top-2 similarity gap, or a ratio against the
+#: threshold): f32 products summed in another order differ by ~1e-7.
+NEAR_TIE = 1e-5
 
 BATCH = 2048
 REPS = 3
@@ -102,20 +120,45 @@ def kernel_phase(correlation):
         x = torch.randn(b, correlation.POS, correlation.CHANNELS, generator=gen, device="cuda")
         return F.normalize(x, dim=-1).to(torch.bfloat16)
 
-    def library_call(a, b):  # yardstick only: the port never calls it
+    # Yardsticks only: the port never calls them.
+    def library_norm(a, b):
         return F.normalize(torch.bmm(a, b.transpose(1, 2)).relu_(), dim=-1)
 
+    def library_relu(a, b):
+        return torch.bmm(a, b.transpose(1, 2)).relu_()
+
+    def library_matmul(a, b):
+        return torch.bmm(a, b.transpose(1, 2))
+
+    # name, batch, views, (kernel, plain, library) as functions of (fr, ft),
+    # each returning a tuple of volumes, file:line of the TPU kernel.
+    specs = (
+        ("corr_asym", 4096, 1, (
+            lambda fr, ft: (correlation.correlation_asym(fr, ft),),
+            lambda fr, ft: (correlation.correlation_reference(fr, ft, sym=False),),
+            library_norm,
+        ), "lfr_tpu/ops/correlation.py:102"),
+        ("corr_sym", 2048, 2, (
+            correlation.correlation_sym,
+            correlation.correlation_reference,
+            lambda fr, ft: (library_norm(fr, ft), library_norm(ft, fr)),
+        ), "lfr_tpu/ops/correlation.py:93"),
+        ("corr_nonorm", 4096, 1, (
+            lambda fr, ft: (correlation.correlation_nonorm(fr, ft),),
+            lambda fr, ft: (correlation._relu_corr(fr, ft),),
+            library_relu,
+        ), "scripts/bench_corr_variants.py:59"),
+        ("corr_matmul", 4096, 1, (
+            lambda fr, ft: (correlation.correlation_matmul(fr, ft),),
+            lambda fr, ft: (correlation._corr(fr, ft),),
+            library_matmul,
+        ), "scripts/bench_corr_variants.py:64"),
+    )
+
     rows = []
-    for name, batch, sym in (("corr_asym", 4096, False), ("corr_sym", 2048, True)):
+    for name, batch, views, fns, replaces in specs:
         fr, ft = feats(batch), feats(batch)
-        if sym:
-            kernel = lambda: correlation.correlation_sym(fr, ft)  # noqa: E731
-            plain = lambda: correlation.correlation_reference(fr, ft)  # noqa: E731
-            library = lambda: (library_call(fr, ft), library_call(ft, fr))  # noqa: E731
-        else:
-            kernel = lambda: (correlation.correlation_asym(fr, ft),)  # noqa: E731
-            plain = lambda: (correlation.correlation_reference(fr, ft, sym=False),)  # noqa: E731
-            library = lambda: library_call(fr, ft)  # noqa: E731
+        kernel, plain, library = (lambda f=f: f(fr, ft) for f in fns)
         got = kernel()
         want = plain()
         torch.cuda.synchronize()
@@ -126,7 +169,6 @@ def kernel_phase(correlation):
         if not err <= KERNEL_ATOL:
             raise RuntimeError(f"{name}: max |kernel - plain| = {err} > {KERNEL_ATOL}")
         del got, want
-        views = 2 if sym else 1
         nbytes = 2 * batch * 289 * 128 * 2 + views * batch * 289 * 289 * 2
         flops = views * 2.0 * batch * 289 * 289 * 128
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -135,7 +177,7 @@ def kernel_phase(correlation):
             "name": name,
             "route": "cuda",
             "source": "lfr_tpu_torch/csrc/correlation.cu",
-            "replaces": "lfr_tpu/ops/correlation.py:93" if sym else "lfr_tpu/ops/correlation.py:102",
+            "replaces": replaces,
             "batch": batch,
             "max_abs_err": err,
             "ms": time_ms(kernel),
@@ -182,7 +224,8 @@ def slice_phase(correlation):
         dt = (time.perf_counter() - t1) / REPS
         counts = dict(correlation.LAUNCHES)
         calls = REPS + 1
-        want = {"corr_sym": calls * chunks, "corr_asym": 9 * calls * chunks}
+        want = {"corr_sym": calls * chunks, "corr_asym": 9 * calls * chunks,
+                "corr_nonorm": 0, "corr_matmul": 0}
         if counts != want:
             raise RuntimeError(f"{mode}: kernel launches {counts}, expected {want}")
         for key in launches:
@@ -212,6 +255,137 @@ def slice_phase(correlation):
         print(json.dumps({"slice": mode, **results[mode]}), flush=True)
         phase(f"slice {mode}", t0)
     return launches, results
+
+
+def match_graph_phase(correlation):
+    """compute_match_graph on the synthetic scene, then the checks."""
+    import torch
+
+    from lfr_tpu_torch.config import get_method
+    from lfr_tpu_torch.io import features as features_io
+    from lfr_tpu_torch.io import images as images_io
+    from lfr_tpu_torch.io import match_list as match_list_io
+    from lfr_tpu_torch.io import protos
+    from lfr_tpu_torch.models.checkpoint import load_variables
+    from lfr_tpu_torch.ops import matchers
+    from lfr_tpu_torch.pipelines.match_graph import compute_match_graph
+    from lfr_tpu_torch.pipelines.refinement import TwoViewRefiner
+    from lfr_tpu_torch.utils import synthetic
+
+    variables = load_variables(os.path.join(HERE, "weights", "panet_holdout.msgpack"))
+    method = get_method("sift")
+    tmp = tempfile.mkdtemp(prefix="lfr_match_graph_")
+    try:
+        t0 = time.perf_counter()
+        scene = synthetic.match_graph_workload(np.random.default_rng(1), tmp)
+        print(f"match_graph: wrote {len(scene['images'])} PNG views in "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        output = os.path.join(tmp, "matches.pb")
+        refiner = TwoViewRefiner(variables, batch_size=BATCH, fine_mode="crop", device="cuda")
+        spans = {}
+        torch.cuda.reset_peak_memory_stats()
+        correlation.reset_launches()
+        t0 = time.perf_counter()
+        written = compute_match_graph(tmp, scene["match_list"], method, output,
+                                      refiner=refiner, sub_spans=spans, progress=False)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = dict(correlation.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+
+        batches = spans["refine_dispatch"]["calls"]
+        want = {"corr_sym": batches, "corr_asym": 9 * batches, "corr_nonorm": 0,
+                "corr_matmul": 0}
+        if counts != want:
+            raise RuntimeError(f"match_graph: kernel launches {counts}, expected {want}")
+        names = scene["images"]
+        pairs = protos.read_matching_file(output)
+        order = [(p.image_name1, p.image_name2) for p in pairs]
+        if written != [output] or order != match_list_io.exhaustive_pairs(names):
+            raise RuntimeError(f"match_graph: wrote {written}, pairs {order}")
+
+        feats = [features_io.load_features(os.path.join(tmp, n), method.name) for n in names]
+        n_matches = near_ties = 0
+        centers = []
+        for p in pairs:
+            a, b = names.index(p.image_name1), names.index(p.image_name2)
+            ids_a, ids_b = scene["point_ids"][a], scene["point_ids"][b]
+            m = p.matches.astype(np.int64)
+            if not np.array_equal(ids_a[m[:, 0]], ids_b[m[:, 1]]):
+                raise RuntimeError(f"match_graph: {p.image_name1}-{p.image_name2} joins "
+                                   "different canvas points")
+            true = len(np.intersect1d(ids_a, ids_b))
+            if not 2 * len(m) >= true:
+                raise RuntimeError(f"match_graph: {p.image_name1}-{p.image_name2} kept "
+                                   f"{len(m)} of {true} true correspondences")
+            for g in (p.disp1, p.disp2):
+                if g.shape != (len(m), 3, 3, 2) or not np.isfinite(g).all():
+                    raise RuntimeError(f"match_graph: bad flow grids {g.shape}")
+            d1, d2 = feats[a].descriptors, feats[b].descriptors
+            cpu, _ = matchers.match(d1, d2, method.matcher, method.threshold, device="cpu")
+            differ = set(map(tuple, m)) ^ set(map(tuple, cpu))
+            for i, j in differ:
+                if not matchers.decision_margin(d1, d2, i, j, method.threshold) < NEAR_TIE:
+                    raise RuntimeError(f"match_graph: match ({i}, {j}) of "
+                                       f"{p.image_name1}-{p.image_name2} differs from the "
+                                       "CPU matcher and is no near-tie")
+            near_ties += len(differ)
+            n_matches += len(m)
+            centers.append(np.abs(p.disp2[:, 1, 1]))
+        center_px = float(np.median(np.concatenate(centers))) * 16.0
+        if not center_px < CENTER_FLOW_MEDIAN_PX:
+            raise RuntimeError(f"match_graph: median center flow {center_px} px")
+
+        # The first N_CPU matches of pair 0 again, on the CPU in f32.
+        first = pairs[0]
+        a, b = names.index(first.image_name1), names.index(first.image_name2)
+        img_a, fact_a = images_io.load_and_downscale(
+            os.path.join(tmp, names[a]), method.max_edge, method.max_sum_edges)
+        img_b, fact_b = images_io.load_and_downscale(
+            os.path.join(tmp, names[b]), method.max_edge, method.max_sum_edges)
+        cpu_ref = TwoViewRefiner(variables, batch_size=N_CPU, compute_dtype=torch.float32,
+                                 fine_mode="crop", device="cpu")
+        c12, c21 = cpu_ref.refine_matches(
+            img_a, feats[a].xy / fact_a, img_b, feats[b].xy / fact_b,
+            first.matches[:N_CPU].astype(np.int64))
+        err = max(np.abs(first.disp2[:N_CPU] - c12).max(),
+                  np.abs(first.disp1[:N_CPU] - c21).max())
+        if not err <= SLICE_ATOL:
+            raise RuntimeError(f"match_graph: max |card - CPU f32| = {err} > {SLICE_ATOL} units")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    decode = spans.get("host_decode", {}).get("total_s", 0.0)
+    result = {
+        "pairs": len(pairs),
+        "matches": n_matches,
+        "image_hw": list(img_a.shape[:2]),
+        "pairs_per_s": len(pairs) / seconds,
+        "matches_per_s": n_matches / seconds,
+        "seconds": seconds,
+        "seconds_without_decode": seconds - decode,
+        "decode_note": "host_decode reads PNGs written with filter 0 (None) on every row",
+        "peak_mem_gib": peak,
+        "median_center_flow_px": center_px,
+        "max_abs_vs_cpu_f32_units": float(err),
+        "near_ties_vs_cpu_matcher": near_ties,
+        "launches": counts,
+        "sub_spans": spans,
+    }
+    print(json.dumps({"match_graph": result}), flush=True)
+    return counts, result
+
+
+def variants_phase(correlation):
+    """scripts/bench_corr_variants_torch.py's path at B=4096."""
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    import bench_corr_variants_torch
+
+    correlation.reset_launches()
+    lines = bench_corr_variants_torch.run()
+    counts = dict(correlation.LAUNCHES)
+    print(json.dumps({"variants": lines, "launches": counts}), flush=True)
+    return counts
 
 
 def main() -> int:
@@ -250,16 +424,26 @@ def main() -> int:
     rows = kernel_phase(correlation)
     phase("kernels", t0)
 
+    paths = {}
     t0 = time.perf_counter()
-    launches, _ = slice_phase(correlation)
+    paths["two_view"], _ = slice_phase(correlation)
     phase("slice", t0)
 
+    t0 = time.perf_counter()
+    paths["match_graph"], _ = match_graph_phase(correlation)
+    phase("match_graph", t0)
+
+    t0 = time.perf_counter()
+    paths["variants"] = variants_phase(correlation)
+    phase("variants", t0)
+
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        row["launches_by_path"] = {path: counts[row["name"]] for path, counts in paths.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
         if row["launches"] == 0:
-            raise RuntimeError(f"{row['name']} was not launched on the main path")
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+            raise RuntimeError(f"{row['name']} was launched on no path")
+    keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}))
     print(f"total: {time.perf_counter() - t_all:.3f} s")
     print(card)

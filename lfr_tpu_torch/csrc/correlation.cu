@@ -4,8 +4,16 @@
 //   _kernel_asym (:102)  c12 = rownorm(relu(fr @ ft^T))
 //   _kernel_sym  (:93)   c12 as above, plus c21 = rownorm(relu(ft @ fr^T))
 // with rownorm(c) = c * rsqrt(max(sum(c^2), 1e-24)) over the full 289-wide
-// row.  Inputs are per-position L2-normalised bf16 feature maps, (B, 289, 128)
-// contiguous; outputs are bf16 (B, 289, 289), row index = reference position.
+// row, and the two variants that scripts/bench_corr_variants.py launches
+// through make_pallas (:74-87) to split the asym kernel's cost:
+//   kernel_nonorm      (:59)  relu(fr @ ft^T)
+//   kernel_matmul_only (:64)  fr @ ft^T
+// (its kernel_norm (:73) is _kernel_asym's body, launched here as
+// lfr_corr_asym).  Inputs are per-position L2-normalised bf16 feature maps,
+// (B, 289, 128) contiguous; outputs are bf16 (B, 289, 289), row index =
+// reference position.  One template, corr_kernel<kRelu, kNorm>, serves all
+// four: <true, true> for asym and sym, <true, false> for nonorm and
+// <false, false> for matmul.
 //
 // What bounds it: the bytes.  At the main path's B = 4096 (asym) the kernel
 // must read 606 MB and write 684 MB, 0.385 ms at 3.35 TB/s, while its
@@ -15,7 +23,9 @@
 // shared memory (cp.async), multiplies them on the tensor cores (WMMA, bf16
 // in, f32 accumulate), keeps the ReLU'd f32 rows in shared memory until the
 // row norm over all 289 columns is known, and writes each output element once
-// as bf16.  Blocks are numbered tile-fastest, so the five blocks that read one
+// as bf16.  Without the norm nothing waits for a whole row: each warp stores
+// its 16x16 accumulator tile through a 1 KB shared-memory scratch of its own
+// straight to bf16, so the 78 KB of staged rows are not allocated.  Blocks are numbered tile-fastest, so the five blocks that read one
 // pair's target map (and, in the sym launch, both views) run together and
 // read it from L2 rather than from device memory.
 //
@@ -50,12 +60,20 @@ constexpr size_t kSmemTgt = size_t(kPosPad) * kLdIn * 2;
 constexpr size_t kSmemRef = size_t(kRows) * kLdIn * 2;
 constexpr size_t kSmemOut = size_t(kRows) * kLdOut * 4;
 constexpr size_t kSmemInv = size_t(kRows) * 4;
-constexpr size_t kSmemBytes = kSmemTgt + kSmemRef + kSmemOut + kSmemInv;
+constexpr size_t kSmemTile = size_t(kWarps) * 16 * 16 * 4;  // per-warp tile scratch
+
+// Dynamic shared memory of one block: with the row norm, the staged rows and
+// their inverse norms; without it, one f32 tile per warp.
+template <bool kNorm>
+constexpr size_t smem_bytes() {
+  return kSmemTgt + kSmemRef + (kNorm ? kSmemOut + kSmemInv : kSmemTile);
+}
 
 static_assert(kThreads == 4 * kRows, "the row-norm pass uses 4 threads per row");
 static_assert(kWarps % kStrips == 0, "warps split evenly over the strips");
 static_assert(kSmemTgt % 32 == 0 && kSmemRef % 32 == 0 && kSmemOut % 32 == 0,
               "WMMA pointers need 32-byte alignment");
+static_assert(smem_bytes<true>() <= 232448, "the block's shared memory exceeds the SM's");
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -78,6 +96,7 @@ __device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat
   }
 }
 
+template <bool kRelu, bool kNorm>
 __global__ void __launch_bounds__(kThreads, 1)
     corr_kernel(const __nv_bfloat16* __restrict__ fa, const __nv_bfloat16* __restrict__ fb,
                 __nv_bfloat16* __restrict__ out_ab, __nv_bfloat16* __restrict__ out_ba,
@@ -85,6 +104,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* s_tgt = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* s_ref = reinterpret_cast<__nv_bfloat16*>(smem + kSmemTgt);
+  // The staged rows with the norm; the warps' tile scratch without it.
   float* s_out = reinterpret_cast<float*>(smem + kSmemTgt + kSmemRef);
   float* s_inv = reinterpret_cast<float*>(smem + kSmemTgt + kSmemRef + kSmemOut);
 
@@ -125,11 +145,28 @@ __global__ void __launch_bounds__(kThreads, 1)
       wmma::load_matrix_sync(b_frag, s_tgt + n * 16 * kLdIn + k * 16, kLdIn);
       wmma::mma_sync(acc, a_frag[k], b_frag, acc);
     }
+    if constexpr (kRelu) {
 #pragma unroll
-    for (int i = 0; i < acc.num_elements; ++i) acc.x[i] = fmaxf(acc.x[i], 0.0f);
-    wmma::store_matrix_sync(s_out + strip * 16 * kLdOut + n * 16, acc, kLdOut,
-                            wmma::mem_row_major);
+      for (int i = 0; i < acc.num_elements; ++i) acc.x[i] = fmaxf(acc.x[i], 0.0f);
+    }
+    if constexpr (kNorm) {
+      wmma::store_matrix_sync(s_out + strip * 16 * kLdOut + n * 16, acc, kLdOut,
+                              wmma::mem_row_major);
+    } else {
+      // The tile goes through this warp's scratch to bf16 in device memory;
+      // rows and columns past 289 are padding and are not written.
+      float* scratch = s_out + warp * 256;
+      wmma::store_matrix_sync(scratch, acc, 16, wmma::mem_row_major);
+      __syncwarp();
+      for (int e = threadIdx.x % 32; e < 256; e += 32) {
+        const int r = row0 + strip * 16 + e / 16;
+        const int c = n * 16 + e % 16;
+        if (r < kPos && c < kPos) out[r * kPos + c] = __float2bfloat16(scratch[e]);
+      }
+      __syncwarp();
+    }
   }
+  if constexpr (!kNorm) return;
   __syncthreads();
 
   // Row sum of squares over the 289 real columns, four threads per row.
@@ -156,12 +193,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+template <bool kRelu, bool kNorm>
 int launch(const void* fa, const void* fb, void* out_ab, void* out_ba, int views, int batch,
            void* stream) {
   if (batch <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = static_cast<long long>(batch) * views * kTiles;
-  corr_kernel<<<static_cast<unsigned>(blocks), kThreads, kSmemBytes,
-                static_cast<cudaStream_t>(stream)>>>(
+  corr_kernel<kRelu, kNorm><<<static_cast<unsigned>(blocks), kThreads, smem_bytes<kNorm>(),
+                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(fa), static_cast<const __nv_bfloat16*>(fb),
       static_cast<__nv_bfloat16*>(out_ab), static_cast<__nv_bfloat16*>(out_ba), views);
   return static_cast<int>(cudaGetLastError());
@@ -171,23 +209,45 @@ int launch(const void* fa, const void* fb, void* out_ab, void* out_ba, int views
 
 extern "C" {
 
-// Opts corr_kernel in to its dynamic shared memory on the current device.
-// Call once per device before the first launch there.
+// Opts every instantiation of corr_kernel in to its dynamic shared memory on
+// the current device.  Call once per device before the first launch there.
 int lfr_corr_init() {
-  return static_cast<int>(cudaFuncSetAttribute(
-      corr_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmemBytes)));
+  cudaError_t err = cudaFuncSetAttribute(corr_kernel<true, true>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem_bytes<true>()));
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(corr_kernel<true, false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem_bytes<false>()));
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(corr_kernel<false, false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem_bytes<false>()));
+  }
+  return static_cast<int>(err);
 }
 
 // c12 = rownorm(relu(fr @ ft^T)); fr, ft: (batch, 289, 128) bf16; c12: (batch, 289, 289) bf16.
 // Launches on the current device.
 int lfr_corr_asym(const void* fr, const void* ft, void* c12, int batch, void* stream) {
-  return launch(fr, ft, c12, nullptr, 1, batch, stream);
+  return launch<true, true>(fr, ft, c12, nullptr, 1, batch, stream);
 }
 
 // c12 as above and c21 = rownorm(relu(ft @ fr^T)), both in one launch.
 int lfr_corr_sym(const void* fr, const void* ft, void* c12, void* c21, int batch,
                  void* stream) {
-  return launch(fr, ft, c12, c21, 2, batch, stream);
+  return launch<true, true>(fr, ft, c12, c21, 2, batch, stream);
+}
+
+// out = relu(fr @ ft^T), shapes as lfr_corr_asym.
+int lfr_corr_nonorm(const void* fr, const void* ft, void* out, int batch, void* stream) {
+  return launch<true, false>(fr, ft, out, nullptr, 1, batch, stream);
+}
+
+// out = fr @ ft^T, shapes as lfr_corr_asym.
+int lfr_corr_matmul(const void* fr, const void* ft, void* out, int batch, void* stream) {
+  return launch<false, false>(fr, ft, out, nullptr, 1, batch, stream);
 }
 
 const char* lfr_cuda_error_string(int code) {

@@ -1,0 +1,55 @@
+"""Host-side image loading and resizing (port of lfr_tpu/io/images.py).
+
+Images are decoded by the port's own PNG reader (:mod:`.png`): the port
+uses neither OpenCV nor PIL.  Grayscale is promoted to 3 channels and an
+alpha channel is dropped, as ``cv2.imread`` and PIL's ``convert("RGB")`` do.
+JPEG and other formats raise.  Downscaling follows the JAX package's route
+without OpenCV: an area resize to round(h/fact) x round(w/fact), then a cast
+to uint8 that truncates.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from ..config import downscale_factor
+from ..ops.image_ops import area_resize
+from .png import SIGNATURE, decode_png
+
+
+def load_image_rgb(path: str) -> np.ndarray:
+    """Load an image as (H, W, 3) uint8 RGB."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    if not data.startswith(SIGNATURE):
+        kind = "a JPEG" if data[:3] == b"\xff\xd8\xff" else "not a PNG"
+        raise ValueError(
+            f"{path} is {kind} file: lfr_tpu_torch decodes PNG only "
+            "(8-bit grayscale, RGB or RGBA)"
+        )
+    image = decode_png(data)
+    if image.ndim == 2:
+        image = np.repeat(image[:, :, None], 3, axis=-1)
+    return np.ascontiguousarray(image[:, :, :3])
+
+
+def resize_by_factor(image: np.ndarray, fact: float) -> np.ndarray:
+    """Area resize by 1/fact on the host."""
+    if fact == 1.0:
+        return image
+    h, w = image.shape[:2]
+    out = area_resize(torch.from_numpy(np.ascontiguousarray(image)), round(h / fact), round(w / fact))
+    return out.numpy().astype(image.dtype)
+
+
+def load_and_downscale(path: str, max_edge: int, max_sum_edges: int) -> Tuple[np.ndarray, float]:
+    """Load an RGB image and downscale it to the method's resolution caps.
+
+    Returns (image, fact)."""
+    image = load_image_rgb(path)
+    h, w = image.shape[:2]
+    fact = downscale_factor(h, w, max_edge, max_sum_edges)
+    return resize_by_factor(image, fact), fact

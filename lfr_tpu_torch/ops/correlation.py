@@ -12,11 +12,14 @@ with rownorm(x) = x / max(||x||, 1e-12) over the 289-wide row.
 Kernels (``csrc/correlation.cu``, built by nvcc for sm_90a, see
 ``cuda_build``) replace the Pallas TPU kernels of lfr_tpu/ops/correlation.py:
 ``lfr_corr_asym`` replaces ``_kernel_asym`` (:102) and ``lfr_corr_sym``
-replaces ``_kernel_sym`` (:93).  Both are bound by memory traffic, not
-arithmetic: at B = 4096 the asym kernel reads 606 MB and writes 684 MB
-(0.385 ms at 3.35 TB/s) against 87.6 GFLOP (0.089 ms at 989 TFLOP/s bf16).
-The design keeps the f32 volume in shared memory and writes each bf16
-output once; the source says how.
+replaces ``_kernel_sym`` (:93).  Two more replace the variants that
+scripts/bench_corr_variants.py launches to split the asym kernel's cost:
+``lfr_corr_nonorm`` (``kernel_nonorm``, :59: relu(fr @ ft^T), no norm) and
+``lfr_corr_matmul`` (``kernel_matmul_only``, :64: fr @ ft^T).  All are bound
+by memory traffic, not arithmetic: at B = 4096 each asym-shaped kernel reads
+606 MB and writes 684 MB (0.385 ms at 3.35 TB/s) against 87.6 GFLOP
+(0.089 ms at 989 TFLOP/s bf16).  The design keeps the f32 volume in shared
+memory and writes each bf16 output once; the source says how.
 
 The wrappers take bf16 (B, 289, 128) contiguous CUDA tensors and return
 bf16 volumes.  A tensor on the CPU goes to the plain version,
@@ -37,7 +40,7 @@ POS = 289
 CHANNELS = 128
 
 #: Kernel launches per variant, counted where the kernel is launched.
-LAUNCHES = {"corr_sym": 0, "corr_asym": 0}
+LAUNCHES = {"corr_sym": 0, "corr_asym": 0, "corr_nonorm": 0, "corr_matmul": 0}
 
 
 def reset_launches() -> None:
@@ -49,8 +52,14 @@ def _norm_rows(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True).clamp_min(eps)
 
 
+def _corr(f_ref: torch.Tensor, f_tgt: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``lfr_corr_matmul``: fr @ ft^T in f32."""
+    return torch.einsum("bpc,bqc->bpq", f_ref.float(), f_tgt.float())
+
+
 def _relu_corr(f_ref: torch.Tensor, f_tgt: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("bpc,bqc->bpq", f_ref.float(), f_tgt.float()).relu()
+    """Plain version of ``lfr_corr_nonorm``: relu(fr @ ft^T) in f32."""
+    return _corr(f_ref, f_tgt).relu()
 
 
 def correlation_reference(f_ref: torch.Tensor, f_tgt: torch.Tensor, sym: bool = True):
@@ -86,7 +95,7 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
-#: Device indices on which the kernel has its shared memory opted in.
+#: Device indices on which the kernels have their shared memory opted in.
 _READY = set()
 
 
@@ -105,17 +114,22 @@ def _launch(entry: str, b: int, *tensors: torch.Tensor) -> None:
     cuda_build.check(lib, code, entry)
 
 
+def _single_view(entry: str, key: str, f_ref: torch.Tensor, f_tgt: torch.Tensor):
+    """One (B, 289, 289) bf16 volume from C entry point ``entry``."""
+    _check_kernel_inputs(f_ref, f_tgt)
+    b = f_ref.shape[0]
+    out = torch.empty((b, POS, POS), dtype=torch.bfloat16, device=f_ref.device)
+    if b:
+        _launch(entry, b, f_ref, f_tgt, out)
+        LAUNCHES[key] += 1
+    return out
+
+
 def correlation_asym(f_ref: torch.Tensor, f_tgt: torch.Tensor) -> torch.Tensor:
     """corr12 only: (B, 289, 128) x2 -> (B, 289, 289)."""
     if _on_cpu(f_ref, f_tgt):
         return correlation_reference(f_ref, f_tgt, sym=False)
-    _check_kernel_inputs(f_ref, f_tgt)
-    b = f_ref.shape[0]
-    c12 = torch.empty((b, POS, POS), dtype=torch.bfloat16, device=f_ref.device)
-    if b:
-        _launch("lfr_corr_asym", b, f_ref, f_tgt, c12)
-        LAUNCHES["corr_asym"] += 1
-    return c12
+    return _single_view("lfr_corr_asym", "corr_asym", f_ref, f_tgt)
 
 
 def correlation_sym(
@@ -132,6 +146,20 @@ def correlation_sym(
         _launch("lfr_corr_sym", b, f_ref, f_tgt, c12, c21)
         LAUNCHES["corr_sym"] += 1
     return c12, c21
+
+
+def correlation_nonorm(f_ref: torch.Tensor, f_tgt: torch.Tensor) -> torch.Tensor:
+    """relu(fr @ ft^T) without the row norm: (B, 289, 128) x2 -> (B, 289, 289)."""
+    if _on_cpu(f_ref, f_tgt):
+        return _relu_corr(f_ref, f_tgt)
+    return _single_view("lfr_corr_nonorm", "corr_nonorm", f_ref, f_tgt)
+
+
+def correlation_matmul(f_ref: torch.Tensor, f_tgt: torch.Tensor) -> torch.Tensor:
+    """fr @ ft^T alone: (B, 289, 128) x2 -> (B, 289, 289)."""
+    if _on_cpu(f_ref, f_tgt):
+        return _corr(f_ref, f_tgt)
+    return _single_view("lfr_corr_matmul", "corr_matmul", f_ref, f_tgt)
 
 
 def corr_views(f_ref: torch.Tensor, f_tgt: torch.Tensor, sym: bool = True):

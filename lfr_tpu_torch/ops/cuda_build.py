@@ -33,6 +33,8 @@ SIGNATURES = {
     "lfr_corr_init": ((), _I),
     "lfr_corr_asym": ((_P, _P, _P, _I, _P), _I),
     "lfr_corr_sym": ((_P, _P, _P, _P, _I, _P), _I),
+    "lfr_corr_nonorm": ((_P, _P, _P, _I, _P), _I),
+    "lfr_corr_matmul": ((_P, _P, _P, _I, _P), _I),
     "lfr_cuda_error_string": ((_I,), ctypes.c_char_p),
 }
 

@@ -1,8 +1,58 @@
-"""2x Gaussian-pyramid upsampling (port of lfr_tpu/ops/image_ops.py:71-100)."""
+"""Image resampling (port of lfr_tpu/ops/image_ops.py): INTER_AREA-style
+area resize as two small matrix products, and 2x Gaussian-pyramid
+upsampling."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def area_resize_matrix(in_size: int, out_size: int, scale: float = None) -> np.ndarray:
+    """(out_size, in_size) row-stochastic area-averaging matrix.
+
+    Output pixel i averages input pixels over [i*s, (i+1)*s), the INTER_AREA
+    definition for any scale.  ``s`` defaults to in/out; pass the original
+    downscale factor to window by it instead of the ratio of rounded sizes.
+    """
+    s = in_size / out_size if scale is None else scale
+    m = np.zeros((out_size, in_size), dtype=np.float32)
+    for i in range(out_size):
+        lo = i * s
+        hi = (i + 1) * s
+        k0 = int(np.floor(lo))
+        k1 = min(int(np.ceil(hi)), in_size)
+        for k in range(k0, k1):
+            overlap = min(hi, k + 1) - max(lo, k)
+            if overlap > 0:
+                m[i, k] = overlap / s
+    return m
+
+
+def _apply_band(m: np.ndarray, x: torch.Tensor) -> torch.Tensor:
+    """``m @ x`` over x's first axis for a banded ``m`` (O, I): each output
+    sums its few nonzero taps in increasing input order, one rounding per
+    product and per sum, so the cost is the taps and not O x I."""
+    nz = m != 0
+    first = nz.argmax(axis=1)
+    count = nz.sum(axis=1)
+    rows = np.arange(m.shape[0])
+    out = torch.zeros((m.shape[0],) + tuple(x.shape[1:]), dtype=torch.float32, device=x.device)
+    for j in range(int(count.max(initial=0))):
+        k = np.minimum(first + j, m.shape[1] - 1)
+        w = np.where(j < count, m[rows, k], np.float32(0.0)).astype(np.float32)
+        w = torch.from_numpy(w).to(x.device).view((-1,) + (1,) * (x.dim() - 1))
+        out = out + w * x[torch.from_numpy(k).to(x.device)]
+    return out
+
+
+def area_resize(image: torch.Tensor, out_h: int, out_w: int, scale: float = None) -> torch.Tensor:
+    """Area resize of an (H, W, C) image to (out_h, out_w, C), f32 out: the
+    products ``R_h @ image @ R_w^T`` of :func:`area_resize_matrix`, taken
+    over each band's taps."""
+    h, w = image.shape[:2]
+    tmp = _apply_band(area_resize_matrix(h, out_h, scale), image.float())
+    return _apply_band(area_resize_matrix(w, out_w, scale), tmp.transpose(0, 1)).transpose(0, 1)
 
 #: pyrUp per-axis taps: zero-stuff, then convolve [1 4 6 4 1]/8.
 _PYR_EVEN = (1.0 / 8.0, 6.0 / 8.0, 1.0 / 8.0)  # taps hitting even outputs

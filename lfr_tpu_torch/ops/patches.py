@@ -1,7 +1,8 @@
 """Batched bilinear patch and crop sampling (port of lfr_tpu/ops/patches.py).
 
 Every extractor reads, per center, one integer-aligned window of a
-reflect-padded (H, W, C) image and interpolates it with two (samples x
+reflect-padded (H, W, C) image, or of image ``img_idx[n]`` of an
+(S, H, W, C) stack (the stacked mode of the cross-pair stream), and interpolates it with two (samples x
 window) hat-weight matrices, one per axis: weight max(0, 1 - |rel - col|)
 for a sample at window coordinate ``rel``.  The window's origin is clamped
 into the image (lfr_tpu/ops/patches.py:134-136); a tap that then falls
@@ -35,12 +36,18 @@ def _hat_weights(
     return base, (1.0 - (rel[..., None] - cols).abs()).clamp_min(0.0)
 
 
-def _sample(image: torch.Tensor, bi, wi, bj, wj, window: int) -> torch.Tensor:
-    """(N, R, window) x crop (N, window, window, C) x (N, Q, window) -> (N, R, Q, C)."""
+def _sample(image: torch.Tensor, bi, wi, bj, wj, window: int, img_idx=None) -> torch.Tensor:
+    """(N, R, window) x crop (N, window, window, C) x (N, Q, window) -> (N, R, Q, C).
+
+    ``image`` is one (H, W, C) image, or an (S, H, W, C) stack from which
+    ``img_idx`` (N,) picks each center's image."""
     ar = torch.arange(window, device=image.device)
     rows = (bi[:, None] + ar)[:, :, None]
     cols = (bj[:, None] + ar)[:, None, :]
-    crop = image[rows, cols].float()  # (N, window, window, C)
+    if img_idx is None:
+        crop = image[rows, cols].float()  # (N, window, window, C)
+    else:
+        crop = image[img_idx.long()[:, None, None], rows, cols].float()
     tmp = torch.einsum("nrw,nwvc->nrvc", wi, crop)
     return torch.einsum("nqv,nrvc->nrqc", wj, tmp)
 
@@ -54,7 +61,7 @@ def _linspace_offsets(patch_size: int, device) -> torch.Tensor:
 
 def extract_patches_separable(
     image_padded: torch.Tensor, ij: torch.Tensor, patch_size: int = PATCH_SIZE,
-    window: int = None,
+    window: int = None, img_idx: torch.Tensor = None,
 ) -> torch.Tensor:
     """(H, W, C) image, (N, 2) centers -> (N, ps, ps, C) patches on the
     ps/(ps-1)-spaced grid."""
@@ -62,17 +69,17 @@ def extract_patches_separable(
         window = patch_size + 4
     ij = ij.float()
     offs = _linspace_offsets(patch_size, ij.device)
-    h, w = image_padded.shape[0], image_padded.shape[1]
+    h, w = image_padded.shape[-3], image_padded.shape[-2]
     pos_i = ij[:, 0:1] + offs
     pos_j = ij[:, 1:2] + offs
     bi, wi = _hat_weights(pos_i[:, 0], pos_i, h, window)
     bj, wj = _hat_weights(pos_j[:, 0], pos_j, w, window)
-    return _sample(image_padded, bi, wi, bj, wj, window)
+    return _sample(image_padded, bi, wi, bj, wj, window, img_idx)
 
 
 def extract_patch_grid_separable(
     image_padded: torch.Tensor, ij: torch.Tensor, grid_step: int,
-    patch_size: int = PATCH_SIZE,
+    patch_size: int = PATCH_SIZE, img_idx: torch.Tensor = None,
 ) -> torch.Tensor:
     """All 9 patches of the 3x3 (+-grid_step px) offset grid per center, from
     one shared window.  Returns (N, 9, ps, ps, C), offset-major in
@@ -83,7 +90,7 @@ def extract_patch_grid_separable(
     shifts = torch.tensor(
         [-float(grid_step), 0.0, float(grid_step)], dtype=torch.float32, device=ij.device
     )
-    h, w = image_padded.shape[0], image_padded.shape[1]
+    h, w = image_padded.shape[-3], image_padded.shape[-2]
 
     def axis(center, size):
         first = center + shifts[0] + offs[0]
@@ -92,23 +99,24 @@ def extract_patch_grid_separable(
 
     bi, wi = axis(ij[:, 0], h)
     bj, wj = axis(ij[:, 1], w)
-    out = _sample(image_padded, bi, wi, bj, wj, window)  # (N, 3ps, 3ps, C)
+    out = _sample(image_padded, bi, wi, bj, wj, window, img_idx)  # (N, 3ps, 3ps, C)
     n, c = out.shape[0], out.shape[-1]
     out = out.reshape(n, 3, patch_size, 3, patch_size, c).permute(0, 1, 3, 2, 4, 5)
     return out.reshape(n, 9, patch_size, patch_size, c)
 
 
 def extract_crops_unit(
-    image_padded: torch.Tensor, ij: torch.Tensor, crop_size: int
+    image_padded: torch.Tensor, ij: torch.Tensor, crop_size: int,
+    img_idx: torch.Tensor = None,
 ) -> torch.Tensor:
     """Unit-lattice crops: ``crop_size`` samples at 1 px spacing centered on
     each (i, j).  Returns (N, cs, cs, C)."""
     window = crop_size + 2
     ij = ij.float()
     offs = torch.arange(crop_size, dtype=torch.float32, device=ij.device) - (crop_size - 1) / 2.0
-    h, w = image_padded.shape[0], image_padded.shape[1]
+    h, w = image_padded.shape[-3], image_padded.shape[-2]
     pos_i = ij[:, 0:1] + offs
     pos_j = ij[:, 1:2] + offs
     bi, wi = _hat_weights(pos_i[:, 0], pos_i, h, window)
     bj, wj = _hat_weights(pos_j[:, 0], pos_j, w, window)
-    return _sample(image_padded, bi, wi, bj, wj, window)
+    return _sample(image_padded, bi, wi, bj, wj, window, img_idx)

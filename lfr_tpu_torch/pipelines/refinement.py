@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from ..config import DEFAULT_BATCH_SIZE, DISPLACEMENT_UNIT_PX, GRID_OFFSET_PX, PATCH_SIZE
 from ..device import resolve_device
 from ..models import panet
+from ..ops import matchers
 from ..ops.image_ops import pyr_up
 from ..ops.patches import (
     REFLECT_MARGIN,
@@ -183,33 +184,35 @@ class TwoViewRefiner:
         fine21 = disp[:, n:].transpose(0, 1).reshape(-1, 3, 3, 2)
         return fine12, fine21
 
-    def _fine_grid(self, up1, up2, ij1, ij2, c12, c21, off1, off2):
+    def _fine_grid(self, up1, up2, ij1, ij2, c12, c21, off1, off2, k1=None, k2=None):
         """Both fine directions: all 4 x 9 patch grids up front, then the
-        asym CNN over both directions at once for each of the 9 offsets."""
+        asym CNN over both directions at once for each of the 9 offsets.
+        With ``k1``/``k2``, ``up1``/``up2`` are image stacks and each match
+        reads its own images."""
         g = int(2.0 * GRID_OFFSET_PX)  # +-16 px on the 2x image
         src12, tgt12, src21, tgt21 = self._fine_targets(ij1, ij2, c12, c21, off1, off2)
         srcs = torch.cat([
-            extract_patch_grid_separable(up1, src12, g, PATCH_SIZE),
-            extract_patch_grid_separable(up2, src21, g, PATCH_SIZE),
+            extract_patch_grid_separable(up1, src12, g, PATCH_SIZE, img_idx=k1),
+            extract_patch_grid_separable(up2, src21, g, PATCH_SIZE, img_idx=k2),
         ])  # (2N, 9, ps, ps, 3)
         tgts = torch.cat([
-            extract_patch_grid_separable(up2, tgt12, g, PATCH_SIZE),
-            extract_patch_grid_separable(up1, tgt21, g, PATCH_SIZE),
+            extract_patch_grid_separable(up2, tgt12, g, PATCH_SIZE, img_idx=k2),
+            extract_patch_grid_separable(up1, tgt21, g, PATCH_SIZE, img_idx=k1),
         ])
         disp = torch.stack([self.model(srcs[:, k], tgts[:, k]) for k in range(9)])
         return self._split_directions(disp, ij1.shape[0])
 
-    def _fine_crop(self, up1, up2, ij1, ij2, c12, c21, off1, off2):
+    def _fine_crop(self, up1, up2, ij1, ij2, c12, c21, off1, off2, k1=None, k2=None):
         """Crop-feature fine pass: the backbone once per 65 px crop, then the
         9 offsets over correlation + head on slices of its feature map."""
         g = int(2.0 * GRID_OFFSET_PX)
         crop = PATCH_SIZE + 2 * g  # 65
         src12, tgt12, src21, tgt21 = self._fine_targets(ij1, ij2, c12, c21, off1, off2)
         crops = torch.cat([
-            extract_crops_unit(up1, src12, crop),
-            extract_crops_unit(up2, src21, crop),
-            extract_crops_unit(up2, tgt12, crop),
-            extract_crops_unit(up1, tgt21, crop),
+            extract_crops_unit(up1, src12, crop, img_idx=k1),
+            extract_crops_unit(up2, src21, crop, img_idx=k2),
+            extract_crops_unit(up2, tgt12, crop, img_idx=k2),
+            extract_crops_unit(up1, tgt21, crop, img_idx=k1),
         ])  # (4N, 65, 65, 3)
         fmaps = self.model.features(crops)  # (4N, 33, 33, C)
         n = ij1.shape[0]
@@ -226,15 +229,112 @@ class TwoViewRefiner:
         disp = torch.stack(disp) * ((PATCH_SIZE - 1.0) / PATCH_SIZE)
         return self._split_directions(disp, n)
 
-    def _refine_full(self, im1, im2, up1, up2, ij1, ij2, o1, o2, ou1, ou2):
-        """Coarse symmetric pass feeding the fine pass, all on the device."""
-        p1 = extract_patches_separable(im1, ij1 + o1, PATCH_SIZE)
-        p2 = extract_patches_separable(im2, ij2 + o2, PATCH_SIZE)
+    def _refine_full(self, im1, im2, up1, up2, ij1, ij2, o1, o2, ou1, ou2, k1=None, k2=None):
+        """Coarse symmetric pass feeding the fine pass, all on the device.
+        With ``k1``/``k2`` the images are stacks indexed per match."""
+        p1 = extract_patches_separable(im1, ij1 + o1, PATCH_SIZE, img_idx=k1)
+        p2 = extract_patches_separable(im2, ij2 + o2, PATCH_SIZE, img_idx=k2)
         c12, c21 = self.model.forward_sym(p1, p2)
-        fine12, fine21 = self._fine_both(up1, up2, ij1, ij2, c12, c21, ou1, ou2)
+        fine12, fine21 = self._fine_both(up1, up2, ij1, ij2, c12, c21, ou1, ou2, k1, k2)
         grid12 = c12[:, None, None] + 0.5 * fine12
         grid21 = c21[:, None, None] + 0.5 * fine21
         return grid12, grid21
+
+    # ------------------------------------------------------------------
+    # Matching, per pair and over a descriptor stack.
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _match_only(d1, d2, n1, n2, threshold, matcher: str) -> torch.Tensor:
+        """Matching alone on padded device descriptors (..., B1, D) x
+        (..., B2, D), packed as (..., B1, 3) f32 [nn12, sim, keep] so that
+        one copy brings it to the host."""
+        nn12, msim, keep = matchers.match_padded(d1, d2, n1, n2, threshold, matcher)
+        return torch.stack([nn12.float(), msim, keep.float()], dim=-1)
+
+    def _match_stack(self, dstack, s1, s2, n1, n2, thr, matcher: str) -> torch.Tensor:
+        """P pairs of descriptor-stack slots matched in one batched product:
+        (S, B, D) stack, (P,) slots, counts and thresholds -> (P, B, 3)."""
+        return self._match_only(dstack[s1], dstack[s2], n1, n2, thr, matcher)
+
+    # ------------------------------------------------------------------
+    # Cross-pair batches over image stacks (pipelines.stream).
+    # ------------------------------------------------------------------
+
+    def _refine_batch(self, base, up, k1, k2, ij1, ij2, ob1, ob2, ou1, ou2):
+        """Coarse-to-fine refinement of one batch of matches drawn from many
+        pairs over the base and 2x image stacks (S, H, W, 3): match n reads
+        images ``k1[n]`` and ``k2[n]``, whose margin offsets are ``ob*[n]``
+        and ``ou*[n]``.  Returns (grid12, grid21), each (N, 3, 3, 2) on the
+        device."""
+        with torch.inference_mode():
+            return self._refine_full(
+                base, base, up, up, ij1, ij2, ob1[:, None], ob2[:, None],
+                ou1[:, None], ou2[:, None], k1, k2,
+            )
+
+    # ------------------------------------------------------------------
+    # Per pair: matching and refinement in one call.
+    # ------------------------------------------------------------------
+
+    def _match_and_refine(self, d1, d2, n1, n2, threshold, kp1, kp2,
+                          im1, im2, up1, up2, o1, o2, ou1, ou2, matcher: str):
+        """Match one pair on the device, then refine every match in chunks
+        of ``batch_size``.  Returns (idx1, idx2, sims, [(grid12, grid21)
+        per chunk]), all on the device.  The count of matches is read on
+        the host to size the chunks, so no capacity is needed."""
+        packed = self._match_only(d1, d2, n1, n2, threshold, matcher)[:n1]
+        idx1 = torch.nonzero(packed[:, 2] > 0).flatten()
+        idx2 = packed[idx1, 0].long()
+        sims = packed[idx1, 1]
+        ij1 = kp1[idx1].flip(-1)  # (x, y) -> (i, j)
+        ij2 = kp2[idx2].flip(-1)
+        parts = []
+        with torch.inference_mode():
+            for start in range(0, idx1.shape[0], self.batch_size):
+                stop = start + self.batch_size
+                parts.append(self._refine_full(
+                    im1, im2, up1, up2, ij1[start:stop], ij2[start:stop], o1, o2, ou1, ou2
+                ))
+        return idx1, idx2, sims, parts
+
+    def process_pair(self, image1, keypoints1, descriptors1, image2, keypoints2,
+                     descriptors2, matcher: str, threshold: float):
+        """Enqueue matching and coarse-to-fine refinement of one pair.
+
+        ``image1``/``image2`` are raw (H, W, 3) uint8 arrays or
+        :class:`PreparedImage` handles; keypoints (K, >=2) x, y at this
+        scale; descriptors (K, D).  Returns a handle for
+        :meth:`finalize_pair`.  Every match is refined: there is no match
+        capacity to outgrow."""
+        dev = self.device
+        d1, n1 = matchers._pad_descriptors(np.asarray(descriptors1, np.float32))
+        d2, n2 = matchers._pad_descriptors(np.asarray(descriptors2, np.float32))
+        kp1 = torch.as_tensor(np.asarray(keypoints1)[:, :2], dtype=torch.float32).to(dev)
+        kp2 = torch.as_tensor(np.asarray(keypoints2)[:, :2], dtype=torch.float32).to(dev)
+        prep1 = prepare_image(image1, dev)
+        prep2 = prepare_image(image2, dev)
+        im1, im2 = _harmonize(prep1.base, prep2.base)
+        up1, up2 = _harmonize(prep1.up, prep2.up)
+        kind = "similarity" if matcher == "similarity" else "ratio"
+        return self._match_and_refine(
+            torch.from_numpy(d1).to(dev), torch.from_numpy(d2).to(dev), n1, n2,
+            float(threshold), kp1, kp2, im1, im2, up1, up2,
+            _scalar(prep1.base.offset, dev), _scalar(prep2.base.offset, dev),
+            _scalar(prep1.up.offset, dev), _scalar(prep2.up.offset, dev), kind,
+        )
+
+    @staticmethod
+    def finalize_pair(pending):
+        """Resolve a :meth:`process_pair` handle -> (matches (N, 2) int64,
+        sims (N,) f32, grid12, grid21 (N, 3, 3, 2) f32)."""
+        idx1, idx2, sims, parts = pending
+        matches = torch.stack([idx1, idx2], dim=1).cpu().numpy().astype(np.int64)
+        if parts:
+            grid12, grid21 = TwoViewRefiner.resolve_refined(("parts", parts))
+        else:
+            grid12 = grid21 = np.zeros((0, 3, 3, 2), np.float32)
+        return matches, sims.cpu().numpy().astype(np.float32), grid12, grid21
 
     def refine_matches_async(self, image1, keypoints1, image2, keypoints2, matches):
         """Enqueue the refinement of every match without waiting for it.

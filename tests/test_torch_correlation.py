@@ -49,7 +49,11 @@ def test_cpu_path_counts_no_launch():
     fr, ft = (torch.from_numpy(x) for x in _features(2, b=1))
     correlation.correlation_sym(fr, ft)
     correlation.correlation_asym(fr, ft)
-    assert correlation.LAUNCHES == {"corr_sym": 0, "corr_asym": 0}
+    correlation.correlation_nonorm(fr, ft)
+    correlation.correlation_matmul(fr, ft)
+    assert correlation.LAUNCHES == {
+        "corr_sym": 0, "corr_asym": 0, "corr_nonorm": 0, "corr_matmul": 0
+    }
 
 
 def _meta(shape=(3, 289, 128), dtype=torch.bfloat16):
@@ -68,6 +72,58 @@ def _meta(shape=(3, 289, 128), dtype=torch.bfloat16):
     ids=["dtype", "shape", "contiguity", "mismatch", "device"],
 )
 def test_kernel_wrappers_reject_bad_inputs(f_ref, f_tgt, error, match):
-    for wrapper in (correlation.correlation_sym, correlation.correlation_asym):
+    for wrapper in (correlation.correlation_sym, correlation.correlation_asym,
+                    correlation.correlation_nonorm, correlation.correlation_matmul):
         with pytest.raises(error, match=match):
             wrapper(f_ref, f_tgt)
+
+
+def _script_kernels():
+    """The Pallas kernel bodies of scripts/bench_corr_variants.py, taken from
+    its source: importing the script would run its platform set-up."""
+    import ast
+    import pathlib
+
+    import jax
+    from jax.experimental import pallas as pl
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "scripts" / "bench_corr_variants.py"
+    tree = ast.parse(path.read_text())
+    wanted = ("kernel_nonorm", "kernel_matmul_only", "kernel_norm")
+    body = [n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name in wanted]
+    assert len(body) == len(wanted)
+    namespace = {"jax": jax, "jnp": jnp, "C": jax_corr}
+    exec(compile(ast.Module(body=body, type_ignores=[]), str(path), "exec"), namespace)
+
+    def run(kernel, fr, ft):
+        b, p, c = fr.shape
+        spec = pl.BlockSpec((1, p, c), lambda i: (i, 0, 0))
+        ospec = pl.BlockSpec((1, p, p), lambda i: (i, 0, 0))
+        return pl.pallas_call(
+            kernel, grid=(b,), in_specs=[spec, spec], out_specs=ospec,
+            out_shape=jax.ShapeDtypeStruct((b, p, p), jnp.float32), interpret=True,
+        )(fr, ft)
+
+    return {name: (lambda fr, ft, k=namespace[name]: run(k, fr, ft)) for name in wanted}
+
+
+@pytest.mark.parametrize(
+    "script_kernel, plain",
+    [
+        ("kernel_nonorm", lambda fr, ft: correlation.correlation_nonorm(fr, ft)),
+        ("kernel_matmul_only", lambda fr, ft: correlation.correlation_matmul(fr, ft)),
+        ("kernel_norm", lambda fr, ft: correlation.correlation_asym(fr, ft)),
+    ],
+    ids=["nonorm", "matmul", "norm"],
+)
+def test_plain_matches_variant_script_kernels(script_kernel, plain):
+    """The wrappers' CPU path (the plain versions) against the variant
+    kernels of the corr microbenchmark in interpret mode, f32 out: the same
+    f32 products in another summation order, so atol 1e-5 as above."""
+    fr, ft = _features(6)
+    want = np.asarray(_script_kernels()[script_kernel](jnp.asarray(fr), jnp.asarray(ft)))
+    got = plain(torch.from_numpy(fr), torch.from_numpy(ft))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (2, 289, 289)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+    if script_kernel == "kernel_matmul_only":
+        assert (want < 0).any()

@@ -1,4 +1,7 @@
-"""lfr_tpu_torch imports torch, numpy and the standard library only."""
+"""lfr_tpu_torch, chip_smoke.py and scripts/bench_corr_variants_torch.py
+import torch, numpy and the standard library only: none of the JAX stack,
+nothing of lfr_tpu, and no image library (the card's machine has no cv2,
+PIL or torchvision)."""
 
 import ast
 import pathlib
@@ -6,7 +9,13 @@ import subprocess
 import sys
 
 PKG = pathlib.Path(__file__).resolve().parents[1] / "lfr_tpu_torch"
-FORBIDDEN = ("jax", "flax", "msgpack", "lfr_tpu")
+ROOT = PKG.parent
+FORBIDDEN = ("jax", "flax", "msgpack", "lfr_tpu", "cv2", "PIL", "torchvision")
+#: Scripts of the port outside the package, by module name and path.
+SCRIPTS = {
+    "chip_smoke": ROOT / "chip_smoke.py",
+    "bench_corr_variants_torch": ROOT / "scripts" / "bench_corr_variants_torch.py",
+}
 
 
 def _modules():
@@ -14,13 +23,16 @@ def _modules():
         rel = path.relative_to(PKG.parent).with_suffix("")
         parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
         yield ".".join(parts), path
+    yield from SCRIPTS.items()
 
 
 def test_importing_every_module_loads_no_jax():
     names = [name for name, _ in _modules()]
     assert "lfr_tpu_torch.pipelines.refinement" in names
+    assert "lfr_tpu_torch.pipelines.match_graph" in names
     code = (
         "import importlib, sys\n"
+        f"sys.path.insert(0, {str(ROOT / 'scripts')!r})\n"
         f"for name in {names!r}:\n"
         "    importlib.import_module(name)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"

@@ -45,7 +45,36 @@ def test_kernel_matches_plain_on_card(cuda_device, sym, batch):
     for g, w in zip(got, want):
         assert g.dtype == torch.bfloat16 and tuple(g.shape) == (batch, 289, 289)
         assert (g.float() - w).abs().max().item() <= ATOL
-    assert correlation.LAUNCHES == {"corr_sym": int(sym), "corr_asym": int(not sym)}
+    assert correlation.LAUNCHES == {
+        "corr_sym": int(sym), "corr_asym": int(not sym), "corr_nonorm": 0, "corr_matmul": 0
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 37])
+@pytest.mark.parametrize(
+    "wrapper, plain, key",
+    [
+        (correlation.correlation_nonorm, correlation._relu_corr, "corr_nonorm"),
+        (correlation.correlation_matmul, correlation._corr, "corr_matmul"),
+    ],
+    ids=["nonorm", "matmul"],
+)
+def test_variant_kernel_matches_plain_on_card(cuda_device, wrapper, plain, key, batch):
+    """The unnormalised variants write values up to |c| <= 1 (unit rows), so
+    the same bf16 bound holds."""
+    fr, ft = _features(5, batch, cuda_device)
+    correlation.reset_launches()
+    got = wrapper(fr, ft)
+    torch.cuda.synchronize()
+    want = plain(fr, ft)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (batch, 289, 289)
+    assert (got.float() - want).abs().max().item() <= ATOL
+    assert correlation.LAUNCHES[key] == 1 and sum(correlation.LAUNCHES.values()) == 1
+    if key == "corr_matmul":
+        assert (got < 0).any()
+    else:
+        assert (got >= 0).all()
 
 
 @pytest.mark.cuda
@@ -59,3 +88,8 @@ def test_kernel_wrapper_raises_on_card(cuda_device):
         correlation.correlation_sym(fr.float(), ft.float())
     with pytest.raises(ValueError, match="must match"):
         correlation.correlation_asym(fr.cpu(), ft)
+    for wrapper in (correlation.correlation_nonorm, correlation.correlation_matmul):
+        with pytest.raises(ValueError, match="aligned"):
+            wrapper(misaligned, ft)
+        with pytest.raises(TypeError, match="bfloat16"):
+            wrapper(fr.float(), ft.float())

@@ -117,3 +117,37 @@ def test_fold_functions_match_jax():
                 rtol=1e-6, atol=1e-6,
             )
     assert "batch_stats" not in ours
+
+
+#: bf16 bound of tests/test_panet.py.
+BF16_ATOL = 5e-3
+
+
+def test_bf16_matches_jax_bf16():
+    """Both nets in bf16 on 16 seeded patch pairs.  The port rounds each
+    conv twice where JAX's _FoldedConv rounds once (FoldedConv's
+    docstring); the difference stays inside the bf16 bound."""
+    folded = jax_panet.fold_bn_variables(jax_checkpoint.load_variables(str(WEIGHTS)))
+    jm = jax_panet.PANet(jnp.bfloat16, folded=True)
+    ours = panet.PANet(torch.bfloat16)
+    ours.load_state_dict(
+        panet.from_jax_variables(panet.fold_bn_variables(checkpoint.load_variables(str(WEIGHTS))))
+    )
+    ours.eval()
+    ref, tgt = _patches(8, b=16), _patches(9, b=16)
+    w12, w21 = jm.apply(folded, jnp.asarray(ref), jnp.asarray(tgt),
+                        method=jax_panet.PANet.forward_sym)
+    with torch.no_grad():
+        g12, g21 = ours.forward_sym(torch.from_numpy(ref), torch.from_numpy(tgt))
+    np.testing.assert_allclose(g12.float().numpy(), np.asarray(w12, np.float32), atol=BF16_ATOL)
+    np.testing.assert_allclose(g21.float().numpy(), np.asarray(w21, np.float32), atol=BF16_ATOL)
+
+    fr = _features(jm, folded, ref).astype(np.float32)
+    ft = _features(jm, folded, tgt).astype(np.float32)
+    want = jm.apply(folded, jnp.asarray(fr), jnp.asarray(ft),
+                    method=jax_panet.PANet.flow_from_features)
+    with torch.no_grad():
+        got = ours.flow_from_features(torch.from_numpy(fr), torch.from_numpy(ft))
+    assert got.shape == (16, 2)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=BF16_ATOL)

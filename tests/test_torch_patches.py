@@ -68,3 +68,29 @@ def test_pyr_up(shape):
     got = image_ops.pyr_up(torch.from_numpy(img))
     assert tuple(got.shape) == (2 * shape[0], 2 * shape[1], 3)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4)
+
+
+@pytest.mark.parametrize(
+    "extract, args",
+    [
+        ("extract_patches_separable", (33,)),
+        ("extract_patch_grid_separable", (16, 33)),
+        ("extract_crops_unit", (65,)),
+    ],
+    ids=["patches", "grid", "crops"],
+)
+def test_stacked_img_idx_mode_matches_jax(extract, args):
+    """Each center reads its own image of an (S, H, W, 3) stack."""
+    rng = np.random.default_rng(4)
+    stack = rng.uniform(0, 255, (3, 90, 110, 3)).astype(np.float32)
+    ij = _centers(90, 110)
+    idx = rng.integers(0, 3, len(ij)).astype(np.int32)
+    want = np.asarray(getattr(jax_patches, extract)(
+        jnp.asarray(stack), jnp.asarray(ij), *args, img_idx=jnp.asarray(idx)))
+    got = getattr(patches, extract)(
+        torch.from_numpy(stack), torch.from_numpy(ij), *args, img_idx=torch.from_numpy(idx))
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+    for n in range(len(ij)):
+        single = getattr(patches, extract)(
+            torch.from_numpy(stack[idx[n]]), torch.from_numpy(ij[n : n + 1]), *args)
+        np.testing.assert_array_equal(got[n].numpy(), single[0].numpy())
