@@ -6,28 +6,37 @@
 Phases, each printing its seconds; any failure ends the run non-zero:
 
 1. device:  needs a CUDA device; prints the card's name and power limit and
-   the TF32 settings.
+   the TF32 and cuDNN settings (``cudnn.benchmark`` off, the library's
+   default).
 2. build:   nvcc builds lfr_tpu_torch/csrc/correlation.cu for sm_90a into
    lfr_tpu_torch/_build/ (plain-C library loaded with ctypes).
 3. kernels: each of the four correlation kernels on seeded inputs (asym,
    nonorm and matmul at B=4096, sym at B=2048), held against its plain
    PyTorch version; kernel, plain-version and one-PyTorch-call
    (``library_ms``) times from CUDA events, beside the least time the card
-   could take (``bound_ms``).
-4. slice:   TwoViewRefiner on bench.py's workload (480x640 shifted pair,
+   could take (``bound_ms``); each kernel's line also carries the time of
+   the previous kernel design, the WMMA kernel with f32 row staging that
+   this one replaced (``ms_pr5``, a constant, NVIDIA H100 80GB HBM3 at
+   700 W).
+4. conv_rounding: FoldedConv on the card at each of the 12 conv shapes of
+   the main path (lfr_tpu_torch.models.panet.MAIN_PATH_CONVS, batch 16),
+   against the one-rounding result bf16(max(conv_f32 + bias, 0)) from an
+   f32 conv of the same bf16 operands with TF32 off; fails where more than
+   CONV_DIFFER_SHARE of a layer's elements differ.
+5. slice:   TwoViewRefiner on bench.py's workload (480x640 shifted pair,
    2048 matches, batch 2048, PANet weights from weights/panet_holdout.msgpack
    read by the port's own reader), fine_mode "crop" then "grid": one warm-up
    and 3 timed calls each; the first 64 matches are held against the same
    port on the CPU in f32.  Its launches count for the path "two_view".
-5. match_graph: compute_match_graph on a scene written to a temporary
+6. match_graph: compute_match_graph on a scene written to a temporary
    directory by synthetic.match_graph_workload: 8 PNG views of 1334x2000
    (1067x1600 after the sift caps), 4096 planted keypoints each, the 28
    pairs of an exhaustive list, fine_mode "crop", batches of 2048.  The
    written MatchingFile is decoded and checked against the scene's ground
    truth, the port's CPU matchers and a CPU f32 refinement of 64 matches.
-6. variants: scripts/bench_corr_variants_torch.py's run (asym, nonorm and
+7. variants: scripts/bench_corr_variants_torch.py's run (asym, nonorm and
    matmul kernels and two PyTorch calls at B=4096).
-7. the kernel list as one JSON line, the card's name and power limit, and
+8. the kernel list as one JSON line, the card's name and power limit, and
    the result line ``{"ok": true, "device": {...}}`` last.
 
 Each path's kernel launches are counted from 0 just before it runs and read
@@ -74,6 +83,20 @@ CENTER_FLOW_MEDIAN_PX = 0.5
 #: within this of a decision (a top-2 similarity gap, or a ratio against the
 #: threshold): f32 products summed in another order differ by ~1e-7.
 NEAR_TIE = 1e-5
+
+#: Share of a conv layer's elements in which FoldedConv may differ from the
+#: one-rounding result: where cuDNN sums in another order than the f32
+#: reference, the sum may lie within its own f32 error of a bf16 rounding
+#: boundary.  scripts/probe_torch_conv_epilogue.py read 1.3e-4 to 2.2e-3 on
+#: the card (the most on head conv0, 7,225-term sums); the two-pass epilogue
+#: the port had before, which rounds twice, differs in 10-16%.
+CONV_DIFFER_SHARE = 5e-3
+
+#: Each kernel's time in the previous design (the WMMA kernel with f32 row
+#: staging), measured by this script (NVIDIA H100 80GB HBM3,
+#: 700 W; PERF.md), printed beside this run's in the kernel phase.
+MS_PREVIOUS_DESIGN = {"corr_asym": 1.3493, "corr_sym": 1.2721, "corr_nonorm": 1.0089,
+          "corr_matmul": 1.0008}
 
 BATCH = 2048
 REPS = 3
@@ -186,10 +209,56 @@ def kernel_phase(correlation):
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": time_ms(library),
         }
+        row["ms_pr5"] = MS_PREVIOUS_DESIGN[name]
         print(json.dumps({"kernel_check": row}), flush=True)
         rows.append(row)
         del fr, ft
         torch.cuda.empty_cache()
+    return rows
+
+
+def conv_rounding_phase():
+    """FoldedConv at the main path's conv shapes against one rounding."""
+    import torch
+    import torch.nn.functional as F
+
+    from lfr_tpu_torch.models.panet import MAIN_PATH_CONVS, FoldedConv
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+    with torch.inference_mode():
+        for name, cin, cout, size, k, pad in MAIN_PATH_CONVS:
+            if cin == 289:  # the head's input: a permuted view of the (B, 17, 17, 289) volume
+                x = torch.rand(16, size, size, cin, generator=gen, device="cuda")
+                x = x.to(torch.bfloat16).permute(0, 3, 1, 2)
+            else:
+                x = torch.rand(16, cin, size, size, generator=gen, device="cuda")
+                x = x * 255 if cin == 3 else x  # raw pixels
+                x = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+            conv = FoldedConv(cin, cout, k, pad).cuda()
+            conv.weight.copy_(torch.randn(cout, cin, k, k, generator=gen, device="cuda")
+                              / (cin * k * k) ** 0.5)
+            conv.bias.copy_(torch.randn(cout, generator=gen, device="cuda") * 0.5)
+            got = conv(x).float()
+            w = conv.weight.to(torch.bfloat16).float()
+            if torch.backends.cudnn.allow_tf32:
+                raise RuntimeError("conv_rounding: the reference needs TF32 off")
+            exact = F.conv2d(x.float(), w, padding=pad).add_(conv.bias.view(1, -1, 1, 1))
+            exact = exact.relu_().to(torch.bfloat16).float()
+            two_pass = F.conv2d(x, w.to(torch.bfloat16), padding=pad)
+            two_pass = two_pass.add_(conv.bias.view(1, -1, 1, 1)).relu_().float()
+            row = {
+                "layer": name,
+                "padded_channels": cin % 8 != 0,
+                "elements": got.numel(),
+                "differ_share": (got != exact).float().mean().item(),
+                "max_rel": ((got - exact).abs() / exact.abs().clamp_min(1e-3)).max().item(),
+                "two_pass_differ_share": (two_pass != exact).float().mean().item(),
+            }
+            print(json.dumps({"conv_rounding": row}), flush=True)
+            if got.shape != exact.shape or not row["differ_share"] <= CONV_DIFFER_SHARE:
+                raise RuntimeError(f"conv_rounding: {name} differs from one rounding: {row}")
+            rows.append(row)
     return rows
 
 
@@ -403,7 +472,9 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cudnn.benchmark = True
+    # The library's default, as the port runs: with benchmark on, cuDNN times
+    # its fused conv engines for 10-19 s at each new shape (PERF.md).
+    torch.backends.cudnn.benchmark = False
     print(
         f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
@@ -423,6 +494,10 @@ def main() -> int:
     t0 = time.perf_counter()
     rows = kernel_phase(correlation)
     phase("kernels", t0)
+
+    t0 = time.perf_counter()
+    conv_rounding_phase()
+    phase("conv_rounding", t0)
 
     paths = {}
     t0 = time.perf_counter()

@@ -3,9 +3,14 @@
 Images are decoded by the port's own PNG reader (:mod:`.png`): the port
 uses neither OpenCV nor PIL.  Grayscale is promoted to 3 channels and an
 alpha channel is dropped, as ``cv2.imread`` and PIL's ``convert("RGB")`` do.
-JPEG and other formats raise.  Downscaling follows the JAX package's route
-without OpenCV: an area resize to round(h/fact) x round(w/fact), then a cast
-to uint8 that truncates.
+JPEG and other formats raise.  Downscaling by ``fact`` gives what the
+reference's ``cv2.resize(image, None, fx=1/fact, fy=1/fact,
+interpolation=cv2.INTER_AREA)`` gives: an output of round(h/fact) x
+round(w/fact), each pixel the average over its window of width ``fact``,
+divided by the part of the window inside the image, then rounded to uint8
+as OpenCV rounds: to nearest, ties to even, except that at an integer
+factor the windows wholly inside the image round ties up (OpenCV's
+integer-factor route adds half before it shifts).
 """
 
 from __future__ import annotations
@@ -37,12 +42,22 @@ def load_image_rgb(path: str) -> np.ndarray:
 
 
 def resize_by_factor(image: np.ndarray, fact: float) -> np.ndarray:
-    """Area resize by 1/fact on the host."""
+    """INTER_AREA resize of a uint8 image by 1/fact on the host, as OpenCV's
+    (module docstring); sizes and window width come from ``inv = 1/fact`` as
+    ``cv2.resize`` takes them: round(h * inv), window 1/inv."""
     if fact == 1.0:
         return image
     h, w = image.shape[:2]
-    out = area_resize(torch.from_numpy(np.ascontiguousarray(image)), round(h / fact), round(w / fact))
-    return out.numpy().astype(image.dtype)
+    inv = 1.0 / fact
+    scale = 1.0 / inv
+    out_h, out_w = round(h * inv), round(w * inv)
+    out = area_resize(torch.from_numpy(np.ascontiguousarray(image)), out_h, out_w, scale=scale)
+    rounded = torch.round(out)
+    if scale == round(scale):
+        rows = out_h - int(out_h * scale > h)
+        cols = out_w - int(out_w * scale > w)
+        rounded[:rows, :cols] = torch.floor(out[:rows, :cols] + 0.5)
+    return rounded.numpy().astype(image.dtype)
 
 
 def load_and_downscale(path: str, max_edge: int, max_sum_edges: int) -> Tuple[np.ndarray, float]:

@@ -5,8 +5,8 @@ Port of lfr_tpu/models/panet.py with ``folded=True``: a VGG backbone
 L2 normalisation, the 289x289 correlation volume (``ops.correlation``, the
 CUDA kernels on the card), a refine head of four unpadded 5x5 convs
 289->128->128->64->64 with the eval-mode BatchNorm folded into them, and
-Linear(64 -> 2).  Every conv is :class:`FoldedConv`, which rounds one more
-time than the JAX ``_FoldedConv`` when the compute type is bf16.
+Linear(64 -> 2).  Every conv is :class:`FoldedConv`, which rounds once, as
+the JAX ``_FoldedConv`` does.
 
 Public functions keep the JAX layouts: patches (B, 33, 33, 3) NHWC, feature
 maps (B, 17, 17, 128), flows (B, 2).  Inside, the CNN runs on NCHW tensors in
@@ -40,16 +40,47 @@ def l2_normalize(x: torch.Tensor, dim: int, eps: float = 1e-12) -> torch.Tensor:
     return (x / norm.clamp_min(eps)).to(x.dtype)
 
 
-class FoldedConv(nn.Module):
-    """Conv, f32 bias, ReLU: the parameters of the JAX ``_FoldedConv``.
+#: The conv layers of the main path as the refiner runs them: (name, in
+#: channels, out channels, input size, kernel, padding).  The backbone runs
+#: at the coarse patch size (33) and, in the fine pass's crop mode, at 65.
+MAIN_PATH_CONVS = (
+    ("conv1_1 coarse", 3, 64, 33, 3, 1),
+    ("conv1_2 coarse", 64, 64, 33, 3, 1),
+    ("conv2_1 coarse", 64, 128, 17, 3, 1),
+    ("conv2_2 coarse", 128, 128, 17, 3, 1),
+    ("conv1_1 crop", 3, 64, 65, 3, 1),
+    ("conv1_2 crop", 64, 64, 65, 3, 1),
+    ("conv2_1 crop", 64, 128, 33, 3, 1),
+    ("conv2_2 crop", 128, 128, 33, 3, 1),
+    ("head conv0", 289, 128, 17, 5, 0),
+    ("head conv1", 128, 128, 13, 5, 0),
+    ("head conv2", 128, 64, 9, 5, 0),
+    ("head conv3", 64, 64, 5, 5, 0),
+)
 
-    The conv runs in the input's type and returns that type (cuDNN sums in
-    f32 and rounds once); the f32 bias is then added in place, which rounds
-    the sum to that type again; ReLU does not round.  The JAX version rounds
-    once, after bias and ReLU.  In f32 the two agree up to summation order;
-    in bf16 each layer may carry one extra bf16 rounding.  cuDNN's fused
-    conv + f32 bias + ReLU rounds once, but fails or runs slowly on some of
-    the network's shapes (PERF.md, open questions)."""
+
+def pad_channels(x: torch.Tensor, multiple: int = 8) -> torch.Tensor:
+    """(N, C, H, W) -> (N, C', H, W) channels_last with C' the next multiple
+    of ``multiple`` and the new channels zero."""
+    extra = -x.shape[1] % multiple
+    return F.pad(x.permute(0, 2, 3, 1), (0, extra)).permute(0, 3, 1, 2)
+
+
+class FoldedConv(nn.Module):
+    """Conv, f32 bias, ReLU, rounded once: the JAX ``_FoldedConv``.
+
+    In the input's type t, the result is t(max(conv_f32(x, w_t) + bias, 0)),
+    with the conv of t-typed operands summed in f32.  On the card a bf16
+    conv is cuDNN's fused conv + f32 bias + ReLU
+    (``torch.cudnn_convolution_relu``), which rounds once in its epilogue;
+    where the input channels are no multiple of 8 (conv1_1's 3, head conv0's
+    289) zero channels pad input and weight first, which changes no sum:
+    without them cuDNN has no engine for conv1_1 at the crop size and takes
+    1.5 s on head conv0.  scripts/probe_torch_conv_epilogue.py chose this
+    for each of the main path's conv shapes (PERF.md, Findings).  A shape
+    cuDNN refuses raises.  Elsewhere (the CPU, f32) the conv runs on the
+    operands widened to f32 and ``torch.add`` of the f32 bias writes t
+    directly, so the only rounding is that store; ReLU commutes with it."""
 
     def __init__(self, cin: int, cout: int, kernel: int, padding: int):
         super().__init__()
@@ -58,8 +89,16 @@ class FoldedConv(nn.Module):
         self.padding = padding
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv2d(x, self.weight.to(x.dtype), padding=self.padding)
-        return y.add_(self.bias.view(1, -1, 1, 1)).relu_()
+        w = self.weight.to(x.dtype)
+        if x.is_cuda and x.dtype == torch.bfloat16:
+            if x.shape[1] % 8:
+                x, w = pad_channels(x), pad_channels(w)
+            p = self.padding
+            w = w.contiguous(memory_format=torch.channels_last)
+            return torch.cudnn_convolution_relu(x, w, self.bias, (1, 1), (p, p), (1, 1), 1)
+        y = F.conv2d(x.float(), w.float(), padding=self.padding)
+        out = torch.empty_like(y, dtype=x.dtype)
+        return torch.add(y, self.bias.view(1, -1, 1, 1), out=out).relu_()
 
 
 class Backbone(nn.Module):

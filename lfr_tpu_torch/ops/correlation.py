@@ -18,11 +18,15 @@ scripts/bench_corr_variants.py launches to split the asym kernel's cost:
 ``lfr_corr_matmul`` (``kernel_matmul_only``, :64: fr @ ft^T).  All are bound
 by memory traffic, not arithmetic: at B = 4096 each asym-shaped kernel reads
 606 MB and writes 684 MB (0.385 ms at 3.35 TB/s) against 87.6 GFLOP
-(0.089 ms at 989 TFLOP/s bf16).  The design keeps the f32 volume in shared
-memory and writes each bf16 output once; the source says how.
+(0.089 ms at 989 TFLOP/s bf16).  One template serves all four: persistent
+blocks walk the pairs, TMA loads the next maps while the current ones
+multiply, the f32 products stay in registers through ReLU and the row norm,
+and each 64-row span of the bf16 output leaves in 16-byte stores; the
+source says how.
 
-The wrappers take bf16 (B, 289, 128) contiguous CUDA tensors and return
-bf16 volumes.  A tensor on the CPU goes to the plain version,
+The wrappers take bf16 (B, 289, 128) contiguous, 16-byte-aligned CUDA
+tensors (the tensor maps of the loads need the alignment) and return bf16
+volumes.  A tensor on the CPU goes to the plain version,
 :func:`correlation_reference` (f32 out, as the JAX fallback); a CUDA tensor
 launches the kernel or raises.
 """

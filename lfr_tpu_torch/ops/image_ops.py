@@ -1,5 +1,5 @@
-"""Image resampling (port of lfr_tpu/ops/image_ops.py): INTER_AREA-style
-area resize as two small matrix products, and 2x Gaussian-pyramid
+"""Image resampling (port of lfr_tpu/ops/image_ops.py): OpenCV's INTER_AREA
+area resize as two small banded matrix products, and 2x Gaussian-pyramid
 upsampling."""
 
 from __future__ import annotations
@@ -13,19 +13,23 @@ def area_resize_matrix(in_size: int, out_size: int, scale: float = None) -> np.n
 
     Output pixel i averages input pixels over [i*s, (i+1)*s), the INTER_AREA
     definition for any scale.  ``s`` defaults to in/out; pass the original
-    downscale factor to window by it instead of the ratio of rounded sizes.
+    downscale factor to window by it instead of the ratio of rounded sizes,
+    as OpenCV does.  A window that runs past the image is divided by the part
+    of it inside the image, min(s, in_size - i*s), as OpenCV's
+    ``computeResizeAreaTab`` does; every other window by ``s``.
     """
     s = in_size / out_size if scale is None else scale
     m = np.zeros((out_size, in_size), dtype=np.float32)
     for i in range(out_size):
         lo = i * s
         hi = (i + 1) * s
+        cover = min(s, in_size - lo)
         k0 = int(np.floor(lo))
         k1 = min(int(np.ceil(hi)), in_size)
         for k in range(k0, k1):
             overlap = min(hi, k + 1) - max(lo, k)
             if overlap > 0:
-                m[i, k] = overlap / s
+                m[i, k] = overlap / cover
     return m
 
 

@@ -231,7 +231,21 @@ class TwoViewRefiner:
 
     def _refine_full(self, im1, im2, up1, up2, ij1, ij2, o1, o2, ou1, ou2, k1=None, k2=None):
         """Coarse symmetric pass feeding the fine pass, all on the device.
-        With ``k1``/``k2`` the images are stacks indexed per match."""
+        With ``k1``/``k2`` the images are stacks indexed per match.
+
+        On the card a short batch runs at the full batch's shapes, its last
+        match repeated: cuDNN builds its fused convs anew for each new shape
+        (about 0.7 s a layer, PERF.md), and the matches are independent."""
+        n = ij1.shape[0]
+        if ij1.is_cuda and 0 < n < self.batch_size:
+            def full(t):
+                if t is None or t.dim() == 0:
+                    return t
+                return torch.cat([t, t[-1:].expand((self.batch_size - n,) + t.shape[1:])])
+
+            grid12, grid21 = self._refine_full(
+                im1, im2, up1, up2, *map(full, (ij1, ij2, o1, o2, ou1, ou2, k1, k2)))
+            return grid12[:n], grid21[:n]
         p1 = extract_patches_separable(im1, ij1 + o1, PATCH_SIZE, img_idx=k1)
         p2 = extract_patches_separable(im2, ij2 + o2, PATCH_SIZE, img_idx=k2)
         c12, c21 = self.model.forward_sym(p1, p2)

@@ -7,8 +7,8 @@ Writes chip_smoke.py's match-graph scene (``synthetic.match_graph_workload``:
 8 PNG views of 1334x2000, 1067x1600 after the sift caps, 4096 planted
 keypoints each, 28 exhaustive pairs) to a temporary directory and runs
 lfr_tpu_torch's ``compute_match_graph`` on it (crop mode, batches of 2048,
-weights/panet_holdout.msgpack) three times: a warm-up (cuDNN picks its
-algorithms for each new batch shape), a plain run, and a run under
+weights/panet_holdout.msgpack) three times: a warm-up (cuDNN builds its
+fused convs for each new batch shape), a plain run, and a run under
 torch.profiler.  Prints one JSON line with the three runs' host-clock
 seconds (traced minus plain is the profiler's cost), the profiled run's
 summed kernel time, the device's busy and idle shares of that run, the time
@@ -58,7 +58,7 @@ def main() -> int:
     ).stdout.strip()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cudnn.benchmark = True
+    torch.backends.cudnn.benchmark = False  # the library's default, as the port runs
 
     refiner = TwoViewRefiner(load_variables(os.path.join(HERE, "weights", "panet_holdout.msgpack")),
                              batch_size=2048, fine_mode="crop", device="cuda")

@@ -74,7 +74,7 @@ def main() -> int:
     ).stdout.strip()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cudnn.benchmark = True
+    torch.backends.cudnn.benchmark = False  # the library's default, as the port runs
 
     variables = load_variables(os.path.join(HERE, "weights", "panet_holdout.msgpack"))
     image1, image2, kps1, kps2, matches = synthetic.bench_workload(np.random.default_rng(0))

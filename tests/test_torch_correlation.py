@@ -127,3 +127,20 @@ def test_plain_matches_variant_script_kernels(script_kernel, plain):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
     if script_kernel == "kernel_matmul_only":
         assert (want < 0).any()
+
+
+def test_ablation_script_patches_the_kernel_source():
+    """scripts/ablate_torch_corr.py switches parts of the kernel off by
+    editing a copy of its source: every edit must still find its place."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "scripts" / "ablate_torch_corr.py"
+    spec = importlib.util.spec_from_file_location("ablate_torch_corr", path)
+    ablate = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ablate)
+    src = ablate.patched_source()
+    for switch in ablate.SWITCHES:
+        assert src.count(switch) >= 1
+    assert src.count("if (ABLATE_PRODUCTS) wgmma_152") == 1 and src.count("if (ABLATE_STAGE)") == 2
+    assert "ABLATE_STORE && c < n_chunks" in src

@@ -1,5 +1,5 @@
-"""lfr_tpu_torch, chip_smoke.py and scripts/bench_corr_variants_torch.py
-import torch, numpy and the standard library only: none of the JAX stack,
+"""lfr_tpu_torch, chip_smoke.py, scripts/bench_corr_variants_torch.py and
+scripts/ablate_torch_corr.py import torch, numpy and the standard library only: none of the JAX stack,
 nothing of lfr_tpu, and no image library (the card's machine has no cv2,
 PIL or torchvision)."""
 
@@ -15,6 +15,7 @@ FORBIDDEN = ("jax", "flax", "msgpack", "lfr_tpu", "cv2", "PIL", "torchvision")
 SCRIPTS = {
     "chip_smoke": ROOT / "chip_smoke.py",
     "bench_corr_variants_torch": ROOT / "scripts" / "bench_corr_variants_torch.py",
+    "ablate_torch_corr": ROOT / "scripts" / "ablate_torch_corr.py",
 }
 
 
