@@ -34,15 +34,30 @@ Phases, each printing its seconds; any failure ends the run non-zero:
    pairs of an exhaustive list, fine_mode "crop", batches of 2048.  The
    written MatchingFile is decoded and checked against the scene's ground
    truth, the port's CPU matchers and a CPU f32 refinement of 64 matches.
-7. variants: scripts/bench_corr_variants_torch.py's run (asym, nonorm and
+   The file stays for the solve phase.
+7. solve: the multi-view solver (lfr_tpu_torch.solver, torch ops on the
+   card, no kernel of ours).  (a) solve_file on the match graph's
+   MatchingFile; the SolutionFile must hold one image per image in
+   first-seen order with each image's features in first-seen order, agree
+   with the port's CPU solve (at most SOLVE_DIFFER_SHARE of the nodes off
+   by more than SOLVE_CPU_ATOL units), and a second card solve must write
+   the same bytes; a lane whose damped system is indefinite must end after
+   one step at its start.  (b) solve_matches on SOLVE_GRAPHS (the
+   full-size and the noisy synthetic graph); on their clean intra-track
+   edges the residual median and 99th percentile must stay under
+   RESIDUAL_MEDIAN and RESIDUAL_P99, the same positions rounded to bf16 and
+   a solve cut to RESIDUAL_CONTROL_STEPS steps must not, and the noisy
+   graph's partition must cut.  One ``{"solve": ...}`` line per run with seconds, nodes and edges
+   per second, sub_spans, stragglers, the |x| > 0.5 count and peak memory.
+8. variants: scripts/bench_corr_variants_torch.py's run (asym, nonorm and
    matmul kernels and two PyTorch calls at B=4096).
-8. the kernel list as one JSON line, the card's name and power limit, and
+9. the kernel list as one JSON line, the card's name and power limit, and
    the result line ``{"ok": true, "device": {...}}`` last.
 
 Each path's kernel launches are counted from 0 just before it runs and read
 just after; every kernel must be launched on at least one path.
 
-Imports torch, numpy and lfr_tpu_torch only.
+Imports torch, numpy and lfr_tpu_torch (whose solver uses scipy) only.
 """
 
 import json
@@ -97,6 +112,35 @@ CONV_DIFFER_SHARE = 5e-3
 #: 700 W; PERF.md), printed beside this run's in the kernel phase.
 MS_PREVIOUS_DESIGN = {"corr_asym": 1.3493, "corr_sym": 1.2721, "corr_nonorm": 1.0089,
           "corr_matmul": 1.0008}
+
+#: The solve on the card against the same port on the CPU: at most
+#: SOLVE_DIFFER_SHARE of the nodes may differ by more than SOLVE_CPU_ATOL
+#: units.  Both solve in f32; lanes whose cost reaches f32 rounding stop on
+#: rounding, so a few may stop at another step.
+SOLVE_CPU_ATOL = 1e-4
+SOLVE_DIFFER_SHARE = 1e-3
+
+#: On solver_graph's clean intra-track edges, |(x_dst - x_src) - (offset_dst
+#: - offset_src)| in units: median and 99th percentile bounds.  They lie
+#: between the card's readings (PERF.md) and those of controls that must fail
+#: them: the card's positions rounded to bf16, and the LM cut to
+#: RESIDUAL_CONTROL_STEPS steps.  Two steps are no control: on constant flows
+#: the first (lam 1e-4) leaves about 1e-4 of each offset, the second reaches
+#: f32 rounding, a right answer.
+RESIDUAL_MEDIAN = 1e-6
+RESIDUAL_P99 = 2e-4
+RESIDUAL_CONTROL_STEPS = 1
+
+#: Part (b)'s graphs, synthetic.solver_graph(np.random.default_rng(0), ...):
+#: scripts/bench_solver.py's second graph (the README's 30-camera scene,
+#: ~150k nodes, 2.2M directed edges), and a 12-image graph with 5% of each
+#: pair's matches rewired, for MSF rejections, inter-track edges, cuts and
+#: stragglers.
+SOLVE_GRAPHS = (("full", dict(n_images=30, n_points=10000)),
+                ("noisy", dict(n_images=12, n_points=3000, outlier_share=0.05)))
+
+#: Steps of the failed-Cholesky check.
+LM_CHECK_ITER = 4
 
 BATCH = 2048
 REPS = 3
@@ -170,12 +214,12 @@ def kernel_phase(correlation):
             lambda fr, ft: (correlation.correlation_nonorm(fr, ft),),
             lambda fr, ft: (correlation._relu_corr(fr, ft),),
             library_relu,
-        ), "scripts/bench_corr_variants.py:59"),
+        ), "scripts/bench_corr_variants.py:56"),
         ("corr_matmul", 4096, 1, (
             lambda fr, ft: (correlation.correlation_matmul(fr, ft),),
             lambda fr, ft: (correlation._corr(fr, ft),),
             library_matmul,
-        ), "scripts/bench_corr_variants.py:64"),
+        ), "scripts/bench_corr_variants.py:61"),
     )
 
     rows = []
@@ -326,8 +370,9 @@ def slice_phase(correlation):
     return launches, results
 
 
-def match_graph_phase(correlation):
-    """compute_match_graph on the synthetic scene, then the checks."""
+def match_graph_phase(correlation, tmp):
+    """compute_match_graph on the synthetic scene written to ``tmp``, then
+    the checks.  The MatchingFile stays in ``tmp`` for the solve phase."""
     import torch
 
     from lfr_tpu_torch.config import get_method
@@ -343,86 +388,82 @@ def match_graph_phase(correlation):
 
     variables = load_variables(os.path.join(HERE, "weights", "panet_holdout.msgpack"))
     method = get_method("sift")
-    tmp = tempfile.mkdtemp(prefix="lfr_match_graph_")
-    try:
-        t0 = time.perf_counter()
-        scene = synthetic.match_graph_workload(np.random.default_rng(1), tmp)
-        print(f"match_graph: wrote {len(scene['images'])} PNG views in "
-              f"{time.perf_counter() - t0:.3f} s", flush=True)
-        output = os.path.join(tmp, "matches.pb")
-        refiner = TwoViewRefiner(variables, batch_size=BATCH, fine_mode="crop", device="cuda")
-        spans = {}
-        torch.cuda.reset_peak_memory_stats()
-        correlation.reset_launches()
-        t0 = time.perf_counter()
-        written = compute_match_graph(tmp, scene["match_list"], method, output,
-                                      refiner=refiner, sub_spans=spans, progress=False)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        counts = dict(correlation.LAUNCHES)
-        peak = torch.cuda.max_memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    scene = synthetic.match_graph_workload(np.random.default_rng(1), tmp)
+    print(f"match_graph: wrote {len(scene['images'])} PNG views in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    output = os.path.join(tmp, "matches.pb")
+    refiner = TwoViewRefiner(variables, batch_size=BATCH, fine_mode="crop", device="cuda")
+    spans = {}
+    torch.cuda.reset_peak_memory_stats()
+    correlation.reset_launches()
+    t0 = time.perf_counter()
+    written = compute_match_graph(tmp, scene["match_list"], method, output,
+                                  refiner=refiner, sub_spans=spans, progress=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(correlation.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
 
-        batches = spans["refine_dispatch"]["calls"]
-        want = {"corr_sym": batches, "corr_asym": 9 * batches, "corr_nonorm": 0,
-                "corr_matmul": 0}
-        if counts != want:
-            raise RuntimeError(f"match_graph: kernel launches {counts}, expected {want}")
-        names = scene["images"]
-        pairs = protos.read_matching_file(output)
-        order = [(p.image_name1, p.image_name2) for p in pairs]
-        if written != [output] or order != match_list_io.exhaustive_pairs(names):
-            raise RuntimeError(f"match_graph: wrote {written}, pairs {order}")
+    batches = spans["refine_dispatch"]["calls"]
+    want = {"corr_sym": batches, "corr_asym": 9 * batches, "corr_nonorm": 0,
+            "corr_matmul": 0}
+    if counts != want:
+        raise RuntimeError(f"match_graph: kernel launches {counts}, expected {want}")
+    names = scene["images"]
+    pairs = protos.read_matching_file(output)
+    order = [(p.image_name1, p.image_name2) for p in pairs]
+    if written != [output] or order != match_list_io.exhaustive_pairs(names):
+        raise RuntimeError(f"match_graph: wrote {written}, pairs {order}")
 
-        feats = [features_io.load_features(os.path.join(tmp, n), method.name) for n in names]
-        n_matches = near_ties = 0
-        centers = []
-        for p in pairs:
-            a, b = names.index(p.image_name1), names.index(p.image_name2)
-            ids_a, ids_b = scene["point_ids"][a], scene["point_ids"][b]
-            m = p.matches.astype(np.int64)
-            if not np.array_equal(ids_a[m[:, 0]], ids_b[m[:, 1]]):
-                raise RuntimeError(f"match_graph: {p.image_name1}-{p.image_name2} joins "
-                                   "different canvas points")
-            true = len(np.intersect1d(ids_a, ids_b))
-            if not 2 * len(m) >= true:
-                raise RuntimeError(f"match_graph: {p.image_name1}-{p.image_name2} kept "
-                                   f"{len(m)} of {true} true correspondences")
-            for g in (p.disp1, p.disp2):
-                if g.shape != (len(m), 3, 3, 2) or not np.isfinite(g).all():
-                    raise RuntimeError(f"match_graph: bad flow grids {g.shape}")
-            d1, d2 = feats[a].descriptors, feats[b].descriptors
-            cpu, _ = matchers.match(d1, d2, method.matcher, method.threshold, device="cpu")
-            differ = set(map(tuple, m)) ^ set(map(tuple, cpu))
-            for i, j in differ:
-                if not matchers.decision_margin(d1, d2, i, j, method.threshold) < NEAR_TIE:
-                    raise RuntimeError(f"match_graph: match ({i}, {j}) of "
-                                       f"{p.image_name1}-{p.image_name2} differs from the "
-                                       "CPU matcher and is no near-tie")
-            near_ties += len(differ)
-            n_matches += len(m)
-            centers.append(np.abs(p.disp2[:, 1, 1]))
-        center_px = float(np.median(np.concatenate(centers))) * 16.0
-        if not center_px < CENTER_FLOW_MEDIAN_PX:
-            raise RuntimeError(f"match_graph: median center flow {center_px} px")
+    feats = [features_io.load_features(os.path.join(tmp, n), method.name) for n in names]
+    n_matches = near_ties = 0
+    centers = []
+    for p in pairs:
+        a, b = names.index(p.image_name1), names.index(p.image_name2)
+        ids_a, ids_b = scene["point_ids"][a], scene["point_ids"][b]
+        m = p.matches.astype(np.int64)
+        if not np.array_equal(ids_a[m[:, 0]], ids_b[m[:, 1]]):
+            raise RuntimeError(f"match_graph: {p.image_name1}-{p.image_name2} joins "
+                               "different canvas points")
+        true = len(np.intersect1d(ids_a, ids_b))
+        if not 2 * len(m) >= true:
+            raise RuntimeError(f"match_graph: {p.image_name1}-{p.image_name2} kept "
+                               f"{len(m)} of {true} true correspondences")
+        for g in (p.disp1, p.disp2):
+            if g.shape != (len(m), 3, 3, 2) or not np.isfinite(g).all():
+                raise RuntimeError(f"match_graph: bad flow grids {g.shape}")
+        d1, d2 = feats[a].descriptors, feats[b].descriptors
+        cpu, _ = matchers.match(d1, d2, method.matcher, method.threshold, device="cpu")
+        differ = set(map(tuple, m)) ^ set(map(tuple, cpu))
+        for i, j in differ:
+            if not matchers.decision_margin(d1, d2, i, j, method.threshold) < NEAR_TIE:
+                raise RuntimeError(f"match_graph: match ({i}, {j}) of "
+                                   f"{p.image_name1}-{p.image_name2} differs from the "
+                                   "CPU matcher and is no near-tie")
+        near_ties += len(differ)
+        n_matches += len(m)
+        centers.append(np.abs(p.disp2[:, 1, 1]))
+    center_px = float(np.median(np.concatenate(centers))) * 16.0
+    if not center_px < CENTER_FLOW_MEDIAN_PX:
+        raise RuntimeError(f"match_graph: median center flow {center_px} px")
 
-        # The first N_CPU matches of pair 0 again, on the CPU in f32.
-        first = pairs[0]
-        a, b = names.index(first.image_name1), names.index(first.image_name2)
-        img_a, fact_a = images_io.load_and_downscale(
-            os.path.join(tmp, names[a]), method.max_edge, method.max_sum_edges)
-        img_b, fact_b = images_io.load_and_downscale(
-            os.path.join(tmp, names[b]), method.max_edge, method.max_sum_edges)
-        cpu_ref = TwoViewRefiner(variables, batch_size=N_CPU, compute_dtype=torch.float32,
-                                 fine_mode="crop", device="cpu")
-        c12, c21 = cpu_ref.refine_matches(
-            img_a, feats[a].xy / fact_a, img_b, feats[b].xy / fact_b,
-            first.matches[:N_CPU].astype(np.int64))
-        err = max(np.abs(first.disp2[:N_CPU] - c12).max(),
-                  np.abs(first.disp1[:N_CPU] - c21).max())
-        if not err <= SLICE_ATOL:
-            raise RuntimeError(f"match_graph: max |card - CPU f32| = {err} > {SLICE_ATOL} units")
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    # The first N_CPU matches of pair 0 again, on the CPU in f32.
+    first = pairs[0]
+    a, b = names.index(first.image_name1), names.index(first.image_name2)
+    img_a, fact_a = images_io.load_and_downscale(
+        os.path.join(tmp, names[a]), method.max_edge, method.max_sum_edges)
+    img_b, fact_b = images_io.load_and_downscale(
+        os.path.join(tmp, names[b]), method.max_edge, method.max_sum_edges)
+    cpu_ref = TwoViewRefiner(variables, batch_size=N_CPU, compute_dtype=torch.float32,
+                             fine_mode="crop", device="cpu")
+    c12, c21 = cpu_ref.refine_matches(
+        img_a, feats[a].xy / fact_a, img_b, feats[b].xy / fact_b,
+        first.matches[:N_CPU].astype(np.int64))
+    err = max(np.abs(first.disp2[:N_CPU] - c12).max(),
+              np.abs(first.disp1[:N_CPU] - c21).max())
+    if not err <= SLICE_ATOL:
+        raise RuntimeError(f"match_graph: max |card - CPU f32| = {err} > {SLICE_ATOL} units")
 
     decode = spans.get("host_decode", {}).get("total_s", 0.0)
     result = {
@@ -442,7 +483,190 @@ def match_graph_phase(correlation):
         "sub_spans": spans,
     }
     print(json.dumps({"match_graph": result}), flush=True)
-    return counts, result
+    return counts, output
+
+
+def _solve_run(name, fn):
+    """Run one solve on the card; returns (result line, sub_spans)."""
+    import torch
+
+    spans = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fn(spans)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    line = {
+        "run": name,
+        "seconds": seconds,
+        "nodes": spans["n_nodes"],
+        "edges": spans["n_edges"],
+        "nodes_per_s": spans["n_nodes"] / seconds,
+        "edges_per_s": spans["n_edges"] / seconds,
+        "n_stragglers": spans["n_stragglers"],
+        "n_outside_half_unit": spans["n_outside"],
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "sub_spans": spans,
+    }
+    return line, spans
+
+
+def _expected_layout(pairs):
+    """Image names in first-seen order and each image's features in
+    first-seen order, from the pairs' matches alone."""
+    order = {}
+    for p in pairs:
+        if p.num_matches:
+            for name, feats in ((p.image_name1, p.matches[:, 0]), (p.image_name2, p.matches[:, 1])):
+                order.setdefault(name, []).append(feats.astype(np.int64))
+    layout = {}
+    for name, chunks in order.items():
+        feats = np.concatenate(chunks)
+        _, first = np.unique(feats, return_index=True)
+        layout[name] = feats[np.sort(first)]
+    return layout
+
+
+def _node_positions(graph, solutions):
+    """(N, 2) positions of the graph's nodes from decoded ImageSolutions."""
+    positions = np.full((graph.num_nodes, 2), np.nan, dtype=np.float32)
+    index = {name: i for i, name in enumerate(graph.image_names)}
+    for sol in solutions:
+        nodes = np.nonzero(graph.node_image == index[sol.image_name])[0]
+        if not np.array_equal(graph.node_feature[nodes], sol.feature_indices):
+            raise RuntimeError(f"solve: {sol.image_name}'s features are not in node order")
+        positions[nodes] = sol.displacements
+    return positions
+
+
+def _clean_edges(pairs):
+    """The graph of ``pairs`` and the mask of its intra-track edges between
+    clean matches.  solver_graph's feature p is point p in every image and a
+    clean match's flow grid is constant at the points' offset difference, so
+    a clean edge joins equal features and its grid centre is offset_dst -
+    offset_src."""
+    from lfr_tpu_torch.solver import graph as graph_mod
+    from lfr_tpu_torch.solver import tracks as tracks_mod
+
+    graph = graph_mod.build_graph(pairs)
+    tracks = tracks_mod.build_tracks(graph)
+    src, dst = graph.edge_src, graph.edge_dst
+    keep = ((graph.node_feature[src] == graph.node_feature[dst])
+            & (tracks.track_idx[src] == tracks.track_idx[dst]))
+    return graph, keep
+
+
+def _clean_residuals(graph, keep, x):
+    """Median and 99th percentile of |(x_dst - x_src) - (offset_dst -
+    offset_src)| over the edges ``keep``, for node positions ``x``."""
+    res = (x[graph.edge_dst] - x[graph.edge_src]) - graph.edge_flow[:, 1, 1]
+    res = np.linalg.norm(res[keep], axis=1)
+    return {"median": float(np.median(res)), "p99": float(np.percentile(res, 99))}
+
+
+def _passes_residual_gate(r):
+    return r["median"] < RESIDUAL_MEDIAN and r["p99"] < RESIDUAL_P99
+
+
+def solve_phase(matches_file, tmp):
+    """The multi-view solve on the card: (a) the match graph's MatchingFile
+    through solve_file, against the port on the CPU, twice for identical
+    bytes; a failed Cholesky on the card; (b) solver_graph's full-size and
+    noisy graphs through solve_matches, with the residual gates."""
+    import torch
+
+    from lfr_tpu_torch.io import protos
+    from lfr_tpu_torch.solver import buckets, lm, partition
+    from lfr_tpu_torch.solver import graph as graph_mod
+    from lfr_tpu_torch.solver import tracks as tracks_mod
+    from lfr_tpu_torch.solver.solve import solve_file, solve_matches
+    from lfr_tpu_torch.utils import synthetic
+
+    lines = {}
+    # (a) the chain: MatchingFile -> SolutionFile on the card.
+    out1, out2, out_cpu = (os.path.join(tmp, f) for f in ("s1.pb", "s2.pb", "s_cpu.pb"))
+    line, _ = _solve_run("chain", lambda sp: solve_file(matches_file, out1, verbose=False,
+                                                          sub_spans=sp))
+    pairs = protos.read_matching_file(matches_file)
+    card = protos.read_solution_file(out1)
+    layout = _expected_layout(pairs)
+    if [s.image_name for s in card] != list(layout):
+        raise RuntimeError(f"solve: images {[s.image_name for s in card]} != {list(layout)}")
+    for sol in card:
+        if not np.array_equal(sol.feature_indices, layout[sol.image_name]):
+            raise RuntimeError(f"solve: {sol.image_name} has {len(sol.feature_indices)} "
+                               f"features, the graph {len(layout[sol.image_name])}")
+        if sol.displacements.shape != (len(sol.feature_indices), 2) or not np.isfinite(
+                sol.displacements).all():
+            raise RuntimeError(f"solve: bad displacements for {sol.image_name}")
+    t0 = time.perf_counter()
+    solve_file(matches_file, out_cpu, device="cpu", verbose=False)
+    cpu_s = time.perf_counter() - t0
+    diff = np.concatenate([np.abs(a.displacements - b.displacements).max(axis=1)
+                           for a, b in zip(card, protos.read_solution_file(out_cpu))])
+    n_differ = int((diff > SOLVE_CPU_ATOL).sum())
+    line.update(cpu_seconds=cpu_s, max_abs_vs_cpu_units=float(diff.max()),
+                nodes_differ_vs_cpu=n_differ)
+    if not n_differ <= SOLVE_DIFFER_SHARE * diff.size:
+        raise RuntimeError(f"solve: {n_differ} of {diff.size} nodes differ from the CPU solve "
+                           f"by more than {SOLVE_CPU_ATOL} units")
+    solve_file(matches_file, out2, verbose=False)
+    with open(out1, "rb") as f1, open(out2, "rb") as f2:
+        line["identical_bytes_second_run"] = f1.read() == f2.read()
+    if not line["identical_bytes_second_run"]:
+        raise RuntimeError("solve: a second card solve wrote other bytes")
+
+    # A lane whose damped system is indefinite (negative similarities) ends
+    # after one step at its start, as JAX's NaN factor makes it.
+    g = graph_mod.build_graph(pairs)
+    tr = tracks_mod.build_tracks(g)
+    batch, _ = next(buckets.iter_packed(g, tr, partition.partition_components(g, tr)))
+    batch.edge_sim[0] *= -1.0
+    results = {}
+    for dev in ("cuda", "cpu"):
+        r = lm.lm_solve(*lm.to_device(batch, dev), max_iter=LM_CHECK_ITER)
+        results[dev] = [t.cpu().numpy() for t in (r.x, r.iterations, r.done)]
+    (x, it, done), (x_cpu, it_cpu, done_cpu) = results["cuda"], results["cpu"]
+    line["failed_cholesky_lane"] = {"iterations": int(it[0]), "done": bool(done[0])}
+    if not (done[0] and it[0] == 1 and not x[0].any() and it_cpu[0] == 1 and done_cpu[0]):
+        raise RuntimeError(f"solve: failed-Cholesky lane {line['failed_cholesky_lane']}")
+    print(json.dumps({"solve": line}), flush=True)
+    lines["chain"] = line
+
+    # (b) full size, then the noisy graph.
+    for name, kwargs in SOLVE_GRAPHS:
+        t0 = time.perf_counter()
+        pairs = synthetic.solver_graph(np.random.default_rng(0), **kwargs)
+        made_s = time.perf_counter() - t0
+        out = {}
+        line, _ = _solve_run(name, lambda sp: out.update(
+            solutions=solve_matches(pairs, verbose=False, sub_spans=sp)))
+        line["graph"] = {**kwargs, "made_s": made_s}
+        line["partition_stats"] = dict(partition.partition_stats)
+        graph, keep = _clean_edges(pairs)
+        x = _node_positions(graph, out["solutions"])
+        line["clean_intra_edges"] = int(keep.sum())
+        line["residual"] = _clean_residuals(graph, keep, x)
+        # Controls the gate must reject: the positions as a bf16 LM could at
+        # best return them, and the LM cut short.
+        controls = {"bf16_positions": _clean_residuals(
+            graph, keep, torch.from_numpy(x).bfloat16().float().numpy())}
+        short = solve_matches(pairs, max_iter=RESIDUAL_CONTROL_STEPS, verbose=False)
+        controls[f"lm_{RESIDUAL_CONTROL_STEPS}_steps"] = _clean_residuals(
+            graph, keep, _node_positions(graph, short))
+        line["residual_controls"] = controls
+        print(json.dumps({"solve": line}), flush=True)
+        if not _passes_residual_gate(line["residual"]):
+            raise RuntimeError(f"solve {name}: residual {line['residual']} over "
+                               f"{RESIDUAL_MEDIAN} / {RESIDUAL_P99}")
+        passed = [c for c, r in controls.items() if _passes_residual_gate(r)]
+        if passed:
+            raise RuntimeError(f"solve {name}: the residual gate passes the controls {passed}")
+        if name == "noisy" and not line["partition_stats"]["cuts"] > 0:
+            raise RuntimeError("solve noisy: the partition made no cut")
+        lines[name] = line
+    return lines
 
 
 def variants_phase(correlation):
@@ -504,9 +728,17 @@ def main() -> int:
     paths["two_view"], _ = slice_phase(correlation)
     phase("slice", t0)
 
-    t0 = time.perf_counter()
-    paths["match_graph"], _ = match_graph_phase(correlation)
-    phase("match_graph", t0)
+    tmp = tempfile.mkdtemp(prefix="lfr_match_graph_")
+    try:
+        t0 = time.perf_counter()
+        paths["match_graph"], matches_file = match_graph_phase(correlation, tmp)
+        phase("match_graph", t0)
+
+        t0 = time.perf_counter()
+        solve_phase(matches_file, tmp)
+        phase("solve", t0)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     t0 = time.perf_counter()
     paths["variants"] = variants_phase(correlation)

@@ -21,6 +21,26 @@ DEFAULT_BATCH_SIZE: int = 1024
 #: Matches are flushed to a ``.part.N`` file every this many pairs.
 DUMP_INTERVAL: int = 5000
 
+# Multi-view solver constants (reference: multi-view-refinement/solve.cc).
+
+#: Box bound on refined positions, in displacement units (= +-16 px).
+SOLVE_BOUND: float = 1.0
+
+#: Cauchy robust-loss scale for intra-track edges.
+CAUCHY_SCALE: float = 0.25
+
+#: Tukey robust-loss scale for inter-track edges.
+TUKEY_SCALE: float = 0.0625
+
+#: Integer scale applied to similarity weights before the normalized min-cut.
+CUT_WEIGHT_SCALE: float = 100.0
+
+#: Levenberg-Marquardt stopping rules mirroring the Ceres options.
+LM_MAX_ITERATIONS: int = 100
+LM_FUNCTION_TOLERANCE: float = 1e-4
+LM_GRADIENT_TOLERANCE: float = 1e-8
+LM_PARAMETER_TOLERANCE: float = 1e-4
+
 
 @dataclasses.dataclass(frozen=True)
 class MethodConfig:

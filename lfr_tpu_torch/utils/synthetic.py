@@ -3,8 +3,9 @@
 A numpy-only copy of ``textured_image``, ``shifted_pair`` and
 ``planted_features`` from lfr_tpu.utils.synthetic: the same seed gives the
 same arrays in both packages.  :func:`bench_workload` is bench.py's
-two-view workload and :func:`match_graph_workload` writes a scene of PNG
-images and feature files for the match graph.
+two-view workload, :func:`match_graph_workload` writes a scene of PNG
+images and feature files for the match graph, and :func:`solver_graph`
+is a match graph for the multi-view solver.
 """
 
 from __future__ import annotations
@@ -150,3 +151,48 @@ def match_graph_workload(
     match_list_io.write_match_list(match_list, match_list_io.exhaustive_pairs(names))
     return {"images": names, "match_list": match_list, "point_ids": point_ids,
             "offsets": offsets}
+
+
+def solver_graph(
+    rng: np.random.Generator,
+    n_images: int,
+    n_points: int,
+    visibility: float = 0.5,
+    outlier_share: float = 0.0,
+):
+    """Pairwise matches over shared synthetic points with constant flows.
+
+    Point p lies at ``offsets[image, p]`` (uniform in +-0.3 units) in each
+    image that sees it (probability ``visibility``); feature p of every image
+    is point p.  Each image pair matches its shared points with similarity
+    uniform in [0.5, 1) and flow grids constant at the offset difference.
+    With ``outlier_share == 0`` this is ``synth_match_graph`` of
+    scripts/bench_solver.py, array for array.  Otherwise, after the clean
+    graph, that share of each pair's matches (rounded) is rewired to a random
+    feature of image 2, drawn from the same ``rng``; their flows and
+    similarities stay, so they are outliers.  Returns a list of PairMatches.
+    """
+    from ..io.protos import PairMatches
+
+    offsets = rng.uniform(-0.3, 0.3, (n_images, n_points, 2)).astype(np.float32)
+    visible = rng.random((n_images, n_points)) < visibility
+    pairs = []
+    for a in range(n_images):
+        for b in range(a + 1, n_images):
+            shared = np.nonzero(visible[a] & visible[b])[0]
+            if shared.size == 0:
+                continue
+            m = np.stack([shared, shared], axis=1).astype(np.uint32)
+            sims = rng.uniform(0.5, 1.0, shared.size).astype(np.float32)
+            d12 = np.tile(
+                (offsets[b, shared] - offsets[a, shared])[:, None, None, :], (1, 3, 3, 1)
+            )
+            pairs.append(
+                PairMatches(f"im{a:03d}", 1.0, f"im{b:03d}", 1.0, m, sims, -d12, d12)
+            )
+    if outlier_share > 0:
+        for pair in pairs:
+            k = int(round(outlier_share * pair.num_matches))
+            rows = rng.choice(pair.num_matches, k, replace=False)
+            pair.matches[rows, 1] = rng.integers(0, n_points, k)
+    return pairs

@@ -1,7 +1,7 @@
-"""lfr_tpu_torch, chip_smoke.py, scripts/bench_corr_variants_torch.py and
-scripts/ablate_torch_corr.py import torch, numpy and the standard library only: none of the JAX stack,
-nothing of lfr_tpu, and no image library (the card's machine has no cv2,
-PIL or torchvision)."""
+"""lfr_tpu_torch, chip_smoke.py and the port's scripts import torch, numpy,
+scipy (the solver's partition) and the standard library only: none of the
+JAX stack, nothing of lfr_tpu, and no image library (the card's machine has
+no cv2, PIL or torchvision)."""
 
 import ast
 import pathlib
@@ -16,6 +16,7 @@ SCRIPTS = {
     "chip_smoke": ROOT / "chip_smoke.py",
     "bench_corr_variants_torch": ROOT / "scripts" / "bench_corr_variants_torch.py",
     "ablate_torch_corr": ROOT / "scripts" / "ablate_torch_corr.py",
+    "profile_torch_solve": ROOT / "scripts" / "profile_torch_solve.py",
 }
 
 
@@ -31,6 +32,9 @@ def test_importing_every_module_loads_no_jax():
     names = [name for name, _ in _modules()]
     assert "lfr_tpu_torch.pipelines.refinement" in names
     assert "lfr_tpu_torch.pipelines.match_graph" in names
+    for module in ("graph", "tracks", "partition", "lm", "buckets", "solve"):
+        assert f"lfr_tpu_torch.solver.{module}" in names
+    assert "lfr_tpu_torch.ops.interpolate" in names
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {str(ROOT / 'scripts')!r})\n"

@@ -1,6 +1,9 @@
 """The port's numpy copy of the synthetic data against lfr_tpu's: the same
 seed must give the same arrays, bit for bit."""
 
+import pathlib
+import sys
+
 import numpy as np
 import pytest
 
@@ -66,3 +69,37 @@ def test_match_graph_workload_writes_a_consistent_scene(tmp_path):
     y1, x1 = min(ay, by) + 100, min(ax, bx) + 120
     np.testing.assert_array_equal(a[y0 - ay : y1 - ay, x0 - ax : x1 - ax],
                                   b[y0 - by : y1 - by, x0 - bx : x1 - bx])
+
+
+@pytest.mark.parametrize("n_images, n_points, visibility", [(12, 300, 0.5), (5, 40, 0.9)])
+def test_solver_graph_is_bench_solver_graph(n_images, n_points, visibility):
+    """Without outliers, solver_graph is scripts/bench_solver.py's
+    synth_match_graph, array for array, and leaves the rng where it does."""
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1] / "scripts"))
+    from bench_solver import synth_match_graph
+
+    rng_got, rng_want = np.random.default_rng(3), np.random.default_rng(3)
+    got = synthetic.solver_graph(rng_got, n_images, n_points, visibility)
+    want = synth_match_graph(rng_want, n_images, n_points, visibility)
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        assert (g.image_name1, g.fact1, g.image_name2, g.fact2) == (
+            w.image_name1, w.fact1, w.image_name2, w.fact2)
+        for field in ("matches", "similarities", "disp1", "disp2"):
+            a, b = getattr(g, field), getattr(w, field)
+            assert a.dtype == b.dtype and a.shape == b.shape, field
+            np.testing.assert_array_equal(a, b, err_msg=field)
+    assert rng_got.random() == rng_want.random()
+
+
+def test_solver_graph_rewires_the_outlier_share():
+    clean = synthetic.solver_graph(np.random.default_rng(4), 6, 200)
+    noisy = synthetic.solver_graph(np.random.default_rng(4), 6, 200, outlier_share=0.05)
+    for c, n in zip(clean, noisy):
+        np.testing.assert_array_equal(n.matches[:, 0], c.matches[:, 0])
+        np.testing.assert_array_equal(n.disp2, c.disp2)
+        rewired = n.matches[:, 1] != c.matches[:, 1]
+        # Rows are drawn without replacement; a draw may land on its own point.
+        assert rewired.sum() <= round(0.05 * c.num_matches)
+        assert rewired.sum() >= round(0.05 * c.num_matches) - 2
+        assert n.matches[:, 1].max() < 200
