@@ -49,9 +49,30 @@ Phases, each printing its seconds; any failure ends the run non-zero:
    a solve cut to RESIDUAL_CONTROL_STEPS steps must not, and the noisy
    graph's partition must cut.  One ``{"solve": ...}`` line per run with seconds, nodes and edges
    per second, sub_spans, stragglers, the |x| > 0.5 count and peak memory.
-8. variants: scripts/bench_corr_variants_torch.py's run (asym, nonorm and
+8. triangulation: the fixed-pose chain (lfr_tpu_torch.pipelines.triangulation:
+   import with batched F + H RANSAC, union-find tracks, batched DLT +
+   Gauss-Newton; torch ops on the card, no kernel of ours) on
+   synthetic.triangulation_workload.  (a) The full-size scene (TRI_SCENE:
+   30 ETH3D DSLR cameras, 20,000 points, 0.5 px noise, 10% rewired
+   matches), raw then ref (the planted SolutionFile): one
+   ``{"triangulation": ...}`` line per run with the spans, pairs/s of
+   verification, tracks/s of the device triangulation, analyze_model's
+   stats, the median point error against the ground truth and the share of
+   rewired matches that survive verification.  Gates: every image
+   registered; ref's mean reprojection error and median point error below
+   raw's; ref's median point error under POINT_ERROR_MEDIAN, which the raw
+   database triangulated with 0 Gauss-Newton steps must fail; at most
+   REWIRED_SURVIVE_SHARE of the rewired matches survive, which every
+   putative match taken as an inlier must fail.  (b) The small scene
+   (TRI_SMALL_SCENE), ref, twice on the card and once on the CPU with the
+   same samples: every pair's configuration equal, inlier sets equal except
+   matches within NEAR_THRESHOLD of a verification threshold, kept points
+   equal except gate near-ties (at most GATE_DIFFER_SHARE of the points),
+   xyz within XYZ_DEPTH_RTOL of the depth; the two card runs write the same
+   bytes into two_view_geometries and points3D.txt.
+9. variants: scripts/bench_corr_variants_torch.py's run (asym, nonorm and
    matmul kernels and two PyTorch calls at B=4096).
-9. the kernel list as one JSON line, the card's name and power limit, and
+10. the kernel list as one JSON line, the card's name and power limit, and
    the result line ``{"ok": true, "device": {...}}`` last.
 
 Each path's kernel launches are counted from 0 just before it runs and read
@@ -138,6 +159,33 @@ RESIDUAL_CONTROL_STEPS = 1
 #: stragglers.
 SOLVE_GRAPHS = (("full", dict(n_images=30, n_points=10000)),
                 ("noisy", dict(n_images=12, n_points=3000, outlier_share=0.05)))
+
+#: The triangulation phase's scenes: synthetic.triangulation_workload's
+#: full size (README's 30-camera scene) and a small one for card vs CPU.
+TRI_SCENE = dict(num_cameras=30, num_points=20000)
+TRI_SMALL_SCENE = dict(num_cameras=8, num_points=3000)
+
+#: Median distance of ref's kept points from the ground truth, in scene
+#: units (the scene is 6 units deep).  It lies between the card's ref
+#: reading (4.41e-4) and the control that must fail it, the raw database
+#: triangulated with 0 Gauss-Newton steps (2.21e-3; raw itself 2.22e-3:
+#: the DLT is near-optimal at 0.5 px), NVIDIA H100 80GB HBM3 at 700 W
+#: (PERF.md).
+POINT_ERROR_MEDIAN = 1e-3
+
+#: Share of the rewired (outlier) matches that may survive verification:
+#: the card read 1.59% (raw) and 1.69% (ref), along epipolar lines; every
+#: putative match taken as an inlier (100%) must fail it.
+REWIRED_SURVIVE_SHARE = 0.03
+
+#: Card vs CPU: a match may change sides only if its Sampson / transfer
+#: error lies within this (relative) of the 4 px threshold; a point may be
+#: kept on one side only if an angle or reprojection gate value lies within
+#: it of its bound, and at most GATE_DIFFER_SHARE of the points so; xyz of
+#: the points kept by both agree within XYZ_DEPTH_RTOL of their depth.
+NEAR_THRESHOLD = 1e-3
+GATE_DIFFER_SHARE = 1e-3
+XYZ_DEPTH_RTOL = 1e-4
 
 #: Steps of the failed-Cholesky check.
 LM_CHECK_ITER = 4
@@ -669,6 +717,278 @@ def solve_phase(matches_file, tmp):
     return lines
 
 
+def _tri_truth(root, truth):
+    """(image name -> id, image id -> point id of each feature) of a
+    triangulation_workload dataset."""
+    from lfr_tpu_torch.io import colmap_db
+
+    db = colmap_db.ColmapDatabase(os.path.join(root, "database.db"))
+    ids = db.image_ids()
+    db.close()
+    return ids, {ids[n]: pof for n, pof in zip(truth["names"], truth["point_of_feature"])}
+
+
+def _point_errors(model, point_of, points):
+    """Distance of each kept point from the ground-truth point of its first
+    observation."""
+    return np.array([np.linalg.norm(p.xyz - points[point_of[p.image_ids[0]][p.point2D_idxs[0]]])
+                     for p in model.points3D.values()])
+
+
+def _rewired_survival(db_path, ids, point_of, truth, table):
+    """Share of the rewired matches that join two different points and lie
+    in ``table`` (``two_view_geometries``: survived verification;
+    ``matches``: every putative match)."""
+    import sqlite3
+
+    from lfr_tpu_torch.io import colmap_db
+
+    con = sqlite3.connect(db_path)
+    rows = {pid: np.frombuffer(data, np.uint32).reshape(-1, 2) for pid, data in con.execute(
+        f"SELECT pair_id, data FROM {table} WHERE rows > 0;")}
+    con.close()
+    outliers = survived = 0
+    for (name1, name2), rewired in truth["rewired"].items():
+        id1, id2 = ids[name1], ids[name2]
+        wrong = rewired[point_of[id1][rewired[:, 0]] != point_of[id2][rewired[:, 1]]]
+        kept = rows.get(colmap_db.pair_id_from_image_ids(id1, id2), np.zeros((0, 2), np.uint32))
+        if id1 > id2:
+            kept = kept[:, ::-1]
+        kept = set(map(tuple, kept.tolist()))
+        outliers += len(wrong)
+        survived += sum(tuple(m) in kept for m in wrong.tolist())
+    return survived / max(outliers, 1), outliers
+
+
+def _tri_run(root, truth, solution, ids, point_of):
+    """One triangulation_pipeline run on the card and its readings."""
+    import sqlite3
+
+    import torch
+
+    from lfr_tpu_torch.io import colmap_model
+    from lfr_tpu_torch.pipelines.triangulation import triangulation_pipeline
+
+    tag = "raw" if solution is None else "ref"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    stats = triangulation_pipeline(root, "sift", truth["matches_file"], solution, verbose=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    report = stats["timing"]
+    spans = {}
+    for s in report:
+        spans[s["span"]] = spans.get(s["span"], 0.0) + s["ms"] / 1e3
+    model = colmap_model.read_model(os.path.join(root, f"sparse-sift-{tag}"))
+    errors = _point_errors(model, point_of, truth["points"])
+    db_path = os.path.join(root, f"sift-{tag}.db")
+    survive, outliers = _rewired_survival(db_path, ids, point_of, truth, "two_view_geometries")
+    con = sqlite3.connect(db_path)
+    putative = con.execute("SELECT sum(rows) FROM matches;").fetchone()[0]
+    con.close()
+    line = {
+        "run": tag,
+        "seconds": seconds,
+        "spans_s": spans,
+        "pairs": stats["matching"]["num_putative_pairs"],
+        "putative_matches": putative,
+        "verify_batches": stats["matching"]["verify_batches"],
+        "pairs_per_s_verify": stats["matching"]["num_putative_pairs"] / spans["import_verify/verify"],
+        "tracks": stats["num_tracks"],
+        "tracks_per_s_device": stats["num_tracks"] / spans["triangulate/device"],
+        "stats": stats["triangulation"],
+        "inlier_pairs": stats["matching"]["num_inlier_pairs"],
+        "inlier_matches": stats["matching"]["num_inlier_matches"],
+        "point_error_median": float(np.median(errors)),
+        "point_error_p90": float(np.percentile(errors, 90)),
+        "rewired_outliers": outliers,
+        "rewired_survive_share": survive,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    return line, model
+
+
+def _gate_values(point, images, cameras):
+    """Max pairwise angle (rad) and per-observation reprojection errors (px)
+    of a model point, in float64 on the host."""
+    from lfr_tpu_torch.io import colmap_model
+
+    centers, errors = [], []
+    for iid, fidx in zip(point.image_ids, point.point2D_idxs):
+        im = images[iid]
+        R = colmap_model.qvec_to_rotmat(im.qvec)
+        centers.append(-R.T @ im.tvec)
+        x = R @ point.xyz + im.tvec
+        fx, fy, cx, cy = cameras[im.camera_id].params
+        errors.append(np.linalg.norm([x[0] / x[2] * fx + cx, x[1] / x[2] * fy + cy]
+                                     - im.xys[fidx]))
+    d = point.xyz - np.array(centers)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    angle = float(np.arccos(np.clip(d @ d.T, -1.0, 1.0)).max())
+    return angle, np.array(errors)
+
+
+def _near_gate(point, images, cameras):
+    from lfr_tpu_torch.sfm import triangulate
+
+    angle, errors = _gate_values(point, images, cameras)
+    bound = np.deg2rad(triangulate.MIN_TRI_ANGLE_DEG)
+    return (abs(angle / bound - 1.0) <= NEAR_THRESHOLD or (
+        np.abs(errors / triangulate.MAX_REPROJ_ERROR_PX - 1.0) <= NEAR_THRESHOLD).any())
+
+
+def _compare_card_cpu(card_root, cpu_root):
+    """Card vs CPU on one dataset's ref run: configs, inlier sets up to
+    near-threshold matches, points up to gate near-ties, xyz."""
+    import torch
+
+    from lfr_tpu_torch.io import colmap_db, colmap_model
+    from lfr_tpu_torch.sfm import geometry, verify
+
+    dbs = [colmap_db.ColmapDatabase(os.path.join(r, "sift-ref.db")) for r in (card_root, cpu_root)]
+    tvg = []
+    for db in dbs:
+        rows = {}
+        for pid, data, config, F, H in db.connection.execute(
+                "SELECT pair_id, data, config, F, H FROM two_view_geometries;"):
+            m = np.frombuffer(data, np.uint32).reshape(-1, 2) if data else np.zeros((0, 2))
+            rows[pid] = (config, set(map(tuple, m.tolist())),
+                         np.frombuffer(F, np.float64).reshape(3, 3),
+                         np.frombuffer(H, np.float64).reshape(3, 3))
+        tvg.append(rows)
+    keypoints = {iid: dbs[0].keypoints(iid) for iid in dbs[0].image_ids().values()}
+    differ_matches = near_matches = 0
+    for pid, (config, inl, F, H) in tvg[0].items():
+        config_cpu, inl_cpu, F_cpu, H_cpu = tvg[1][pid]
+        if config != config_cpu:
+            raise RuntimeError(f"triangulation: pair {pid} config {config} on the card, "
+                               f"{config_cpu} on the CPU")
+        differ = np.array(sorted(inl ^ inl_cpu), np.int64).reshape(-1, 2)
+        if not len(differ):
+            continue
+        id1, id2 = colmap_db.image_ids_from_pair_id(pid)
+        x1 = torch.from_numpy(keypoints[id1][differ[:, 0], :2].astype(np.float64))
+        x2 = torch.from_numpy(keypoints[id2][differ[:, 1], :2].astype(np.float64))
+        planar = config == verify.CONFIG_PLANAR_OR_PANORAMIC
+        near = np.zeros(len(differ), bool)
+        for M in ((H, H_cpu) if planar else (F, F_cpu)):
+            error = geometry.homography_error if planar else geometry.sampson_error
+            e = error(torch.from_numpy(M.copy()), x1, x2).numpy()
+            near |= np.abs(e / verify.MAX_ERROR_PX**2 - 1.0) <= NEAR_THRESHOLD
+        if not near.all():
+            raise RuntimeError(f"triangulation: pair {pid}: {int((~near).sum())} inliers "
+                               "differ between card and CPU away from the threshold")
+        differ_matches += len(differ)
+        near_matches += int(near.sum())
+    for db in dbs:
+        db.close()
+
+    models = [colmap_model.read_model(os.path.join(r, "sparse-sift-ref"))
+              for r in (card_root, cpu_root)]
+    tracks = [{tuple(zip(p.image_ids.tolist(), p.point2D_idxs.tolist())): p
+               for p in m.points3D.values()} for m in models]
+    only = [(t, tracks[k][t], models[k]) for k in (0, 1) for t in tracks[k].keys() - tracks[1 - k]]
+    n_near = sum(_near_gate(p, m.images, m.cameras) for _, p, m in only)
+    if n_near < len(only) or len(only) > GATE_DIFFER_SHARE * len(tracks[0]):
+        raise RuntimeError(f"triangulation: {len(only)} points kept on one side only, "
+                           f"{n_near} of them at gate near-ties")
+    worst = 0.0
+    for t, p in tracks[0].items():
+        if t in tracks[1]:
+            im = models[0].images[p.image_ids[0]]
+            depth = (colmap_model.qvec_to_rotmat(im.qvec) @ p.xyz + im.tvec)[2]
+            worst = max(worst, float(np.abs(p.xyz - tracks[1][t].xyz).max() / depth))
+    if not worst <= XYZ_DEPTH_RTOL:
+        raise RuntimeError(f"triangulation: xyz differ by {worst} of the depth")
+    return {"inlier_matches_differ": differ_matches, "near_threshold": near_matches,
+            "points": len(tracks[0]), "points_one_side": len(only),
+            "points_gate_near_ties": n_near, "max_xyz_diff_of_depth": worst}
+
+
+def _geometry_bytes(root):
+    import sqlite3
+
+    con = sqlite3.connect(os.path.join(root, "sift-ref.db"))
+    rows = con.execute("SELECT * FROM two_view_geometries ORDER BY pair_id;").fetchall()
+    con.close()
+    with open(os.path.join(root, "sparse-sift-ref", "points3D.txt"), "rb") as fh:
+        return rows, fh.read()
+
+
+def triangulation_phase(tmp):
+    """The fixed-pose chain on the card: (a) full size, raw and ref, with the
+    gates and their controls; (b) card vs CPU and card vs card on the small
+    scene."""
+    from lfr_tpu_torch.io import colmap_db, colmap_model
+    from lfr_tpu_torch.pipelines.triangulation import triangulation_pipeline
+    from lfr_tpu_torch.sfm import triangulate
+    from lfr_tpu_torch.utils import synthetic
+
+    root = os.path.join(tmp, "tri_full")
+    t0 = time.perf_counter()
+    truth = synthetic.triangulation_workload(np.random.default_rng(2), root, **TRI_SCENE)
+    made_s = time.perf_counter() - t0
+    ids, point_of = _tri_truth(root, truth)
+    lines = {}
+    for solution in (None, truth["solution_file"]):
+        line, _ = _tri_run(root, truth, solution, ids, point_of)
+        line["scene"] = {**TRI_SCENE, "made_s": made_s}
+        lines[line["run"]] = line
+        print(json.dumps({"triangulation": line}), flush=True)
+    raw, ref = lines["raw"], lines["ref"]
+
+    # Controls the gates must reject.
+    db = colmap_db.ColmapDatabase(os.path.join(root, "sift-raw.db"))
+    empty = colmap_model.read_model(os.path.join(root, "sparse-sift-raw-empty"))
+    dlt = triangulate.triangulate_model(db, empty, iterations=0).model
+    db.close()
+    controls = {
+        "raw_gn_0_steps_point_error_median": float(np.median(
+            _point_errors(dlt, point_of, truth["points"]))),
+        "putative_as_inliers_survive_share": _rewired_survival(
+            os.path.join(root, "sift-raw.db"), ids, point_of, truth, "matches")[0],
+    }
+    for name, line in lines.items():
+        if line["stats"]["num_reg_images"] != TRI_SCENE["num_cameras"]:
+            raise RuntimeError(f"triangulation {name}: {line['stats']['num_reg_images']} "
+                               "images registered")
+        if not line["rewired_survive_share"] <= REWIRED_SURVIVE_SHARE:
+            raise RuntimeError(f"triangulation {name}: {line['rewired_survive_share']} of the "
+                               "rewired matches survive verification")
+    if not (ref["stats"]["mean_reproj_error"] < raw["stats"]["mean_reproj_error"]
+            and ref["point_error_median"] < raw["point_error_median"]):
+        raise RuntimeError("triangulation: ref is not more accurate than raw")
+    if not ref["point_error_median"] < POINT_ERROR_MEDIAN:
+        raise RuntimeError(f"triangulation ref: median point error {ref['point_error_median']}")
+    if controls["raw_gn_0_steps_point_error_median"] < POINT_ERROR_MEDIAN:
+        raise RuntimeError(f"triangulation: the accuracy gate passes its control {controls}")
+    if controls["putative_as_inliers_survive_share"] <= REWIRED_SURVIVE_SHARE:
+        raise RuntimeError(f"triangulation: the outlier gate passes its control {controls}")
+
+    # (b) card vs CPU, card vs card, on the small scene.
+    small = os.path.join(tmp, "tri_small")
+    truth = synthetic.triangulation_workload(np.random.default_rng(3), small, **TRI_SMALL_SCENE)
+    roots = {k: os.path.join(tmp, f"tri_small_{k}") for k in ("card1", "card2", "cpu")}
+    seconds = {}
+    for name, path in roots.items():
+        shutil.copytree(small, path)
+        t0 = time.perf_counter()
+        triangulation_pipeline(path, "sift", truth["matches_file"], truth["solution_file"],
+                               verbose=False, device="cpu" if name == "cpu" else "cuda")
+        seconds[name] = time.perf_counter() - t0
+    compare = _compare_card_cpu(roots["card1"], roots["cpu"])
+    compare["identical_bytes_second_card_run"] = (
+        _geometry_bytes(roots["card1"]) == _geometry_bytes(roots["card2"]))
+    compare.update(scene=TRI_SMALL_SCENE, seconds=seconds, controls=controls,
+                   bounds={"point_error_median": POINT_ERROR_MEDIAN,
+                           "rewired_survive_share": REWIRED_SURVIVE_SHARE})
+    print(json.dumps({"triangulation_check": compare}), flush=True)
+    if not compare["identical_bytes_second_card_run"]:
+        raise RuntimeError("triangulation: a second card run wrote other bytes")
+    return lines
+
+
 def variants_phase(correlation):
     """scripts/bench_corr_variants_torch.py's path at B=4096."""
     sys.path.insert(0, os.path.join(HERE, "scripts"))
@@ -737,6 +1057,12 @@ def main() -> int:
         t0 = time.perf_counter()
         solve_phase(matches_file, tmp)
         phase("solve", t0)
+
+        t0 = time.perf_counter()
+        correlation.reset_launches()
+        triangulation_phase(tmp)
+        paths["triangulation"] = dict(correlation.LAUNCHES)
+        phase("triangulation", t0)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -1,10 +1,34 @@
-"""Accumulating timing spans (port of ``Accum`` in lfr_tpu/utils/timing.py)."""
+"""Timing spans (port of ``Spans`` and ``Accum`` in lfr_tpu/utils/timing.py)."""
 
 from __future__ import annotations
 
 import contextlib
 import time
-from typing import Dict
+from typing import Dict, List
+
+
+class Spans:
+    """Named, nested wall-clock spans: ``report()`` lists each closed span as
+    {"span": "outer/inner", "ms": ...}, in the order they closed."""
+
+    def __init__(self):
+        self._spans: List[Dict] = []
+        self._stack: List[str] = []
+
+    @contextlib.contextmanager
+    def span(self, name: str):
+        path = "/".join(self._stack + [name])
+        self._stack.append(name)
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            dt = time.perf_counter() - t0
+            self._stack.pop()
+            self._spans.append({"span": path, "ms": round(dt * 1000.0, 3)})
+
+    def report(self) -> List[Dict]:
+        return list(self._spans)
 
 
 class Accum:

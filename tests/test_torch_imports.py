@@ -17,6 +17,7 @@ SCRIPTS = {
     "bench_corr_variants_torch": ROOT / "scripts" / "bench_corr_variants_torch.py",
     "ablate_torch_corr": ROOT / "scripts" / "ablate_torch_corr.py",
     "profile_torch_solve": ROOT / "scripts" / "profile_torch_solve.py",
+    "profile_torch_triangulation": ROOT / "scripts" / "profile_torch_triangulation.py",
 }
 
 
@@ -35,6 +36,10 @@ def test_importing_every_module_loads_no_jax():
     for module in ("graph", "tracks", "partition", "lm", "buckets", "solve"):
         assert f"lfr_tpu_torch.solver.{module}" in names
     assert "lfr_tpu_torch.ops.interpolate" in names
+    for module in ("io.colmap_db", "io.colmap_model", "sfm.cameras", "sfm.geometry",
+                   "sfm.verify", "sfm.triangulate", "pipelines.import_features",
+                   "pipelines.triangulation"):
+        assert f"lfr_tpu_torch.{module}" in names
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {str(ROOT / 'scripts')!r})\n"

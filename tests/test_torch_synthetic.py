@@ -103,3 +103,89 @@ def test_solver_graph_rewires_the_outlier_share():
         assert rewired.sum() <= round(0.05 * c.num_matches)
         assert rewired.sum() >= round(0.05 * c.num_matches) - 2
         assert n.matches[:, 1].max() < 200
+
+
+def test_random_scene_matches_jax_package():
+    rng_got, rng_want = np.random.default_rng(6), np.random.default_rng(6)
+    got = synthetic.random_scene(rng_got, num_points=50, num_cameras=3, noise_px=0.5)
+    want = jax_synthetic.random_scene(rng_want, num_points=50, num_cameras=3, noise_px=0.5)
+    for field in ("points", "rotations", "translations", "K", "width", "height"):
+        np.testing.assert_array_equal(getattr(got, field), getattr(want, field))
+    for field in ("observations", "visible"):
+        for a, b in zip(getattr(got, field), getattr(want, field)):
+            np.testing.assert_array_equal(a, b)
+    assert got.num_cameras == 3 and rng_got.random() == rng_want.random()
+
+
+def test_make_eth3d_dataset_matches_jax_package(tmp_path):
+    """The same files (the PNG images: the same pixels) from the same seed."""
+    import cv2
+    from lfr_tpu_torch.io import features, png
+
+    scene = synthetic.random_scene(np.random.default_rng(7), num_points=30, num_cameras=3)
+    synthetic.make_eth3d_dataset(str(tmp_path / "port"), scene, np.random.default_rng(8),
+                                 keypoint_noise_px=0.5)
+    jax_synthetic.make_eth3d_dataset(str(tmp_path / "jax"), scene, np.random.default_rng(8),
+                                     keypoint_noise_px=0.5)
+    for rel in ("dslr_calibration_undistorted/cameras.txt",
+                "dslr_calibration_undistorted/images.txt",
+                "dslr_calibration_undistorted/points3D.txt", "match-list.txt",
+                "dslr_scan_eval/scan.ply", "dslr_scan_eval/scan_alignment.mlp"):
+        assert (tmp_path / "port" / rel).read_bytes() == (tmp_path / "jax" / rel).read_bytes()
+    for c in range(3):
+        name = f"im{c:04d}.png"
+        got = features.load_features(str(tmp_path / "port" / "images" / name), "sift")
+        want = features.load_features(str(tmp_path / "jax" / "images" / name), "sift")
+        np.testing.assert_array_equal(got.keypoints, want.keypoints)
+        np.testing.assert_array_equal(got.descriptors, want.descriptors)
+        pixels = png.decode_png((tmp_path / "port" / "images" / name).read_bytes())
+        np.testing.assert_array_equal(
+            pixels, cv2.imread(str(tmp_path / "jax" / "images" / name))[:, :, ::-1])
+    import sqlite3
+
+    dumps = [list(sqlite3.connect(str(tmp_path / p / "database.db")).iterdump())
+             for p in ("port", "jax")]
+    assert dumps[0] == dumps[1]
+
+
+def test_triangulation_workload_is_consistent(tmp_path):
+    from lfr_tpu_torch.io import colmap_db, colmap_model, features, protos
+    from lfr_tpu_torch.pipelines.import_features import apply_solution
+
+    truth = synthetic.triangulation_workload(np.random.default_rng(9), str(tmp_path), 8, 400)
+    names = truth["names"]
+    model = colmap_model.read_model(str(tmp_path / "dslr_calibration_undistorted"))
+    cam = model.cameras[1]
+    assert (cam.model, cam.width, cam.height) == ("PINHOLE", 6048, 4032)
+    db = colmap_db.ColmapDatabase(str(tmp_path / "database.db"))
+    assert sorted(db.image_ids()) == names
+    db.close()
+    solutions = {s.image_name: s for s in protos.read_solution_file(truth["solution_file"])}
+    by_name = model.image_by_name()
+    seen = np.zeros(400, int)
+    for name, ids in zip(names, truth["point_of_feature"]):
+        im = by_name[name]
+        R = colmap_model.qvec_to_rotmat(im.qvec)
+        cam_pts = truth["points"][ids] @ R.T + im.tvec
+        uv = cam_pts[:, :2] / cam_pts[:, 2:] * 3400.0 + [3024.0, 2016.0]
+        kp = features.load_features(str(tmp_path / "images" / name), "sift")
+        kp = kp.completed_keypoints().astype(np.float32)
+        raw = apply_solution(kp, None)[:, :2] - uv
+        ref = apply_solution(kp, solutions[name])[:, :2] - uv
+        # 0.5 px noise, planted down to 0.1 px (per coordinate).
+        assert 0.4 < raw.std() < 0.6 and 0.07 < ref.std() < 0.13
+        seen[ids] += 1
+    assert 2 <= seen.min() and seen.max() <= 8
+    pairs = protos.read_matching_file(truth["matches_file"])
+    assert len(pairs) == 28 and pairs[0].fact1 == pytest.approx(6048 / 1600)
+    n_rewired = n_matches = 0
+    for p in pairs:
+        a, b = names.index(p.image_name1), names.index(p.image_name2)
+        pof = truth["point_of_feature"]
+        wrong = pof[a][p.matches[:, 0]] != pof[b][p.matches[:, 1]]
+        rewired = truth["rewired"][(p.image_name1, p.image_name2)]
+        assert len(rewired) == round(0.1 * p.num_matches)
+        assert wrong.sum() <= len(rewired)
+        n_rewired += len(rewired)
+        n_matches += p.num_matches
+    assert 0.09 < n_rewired / n_matches < 0.11
