@@ -8,8 +8,14 @@ Phases, each printing its seconds; any failure ends the run non-zero:
 1. device:  needs a CUDA device; prints the card's name and power limit and
    the TF32 and cuDNN settings (``cudnn.benchmark`` off, the library's
    default).
-2. build:   nvcc builds lfr_tpu_torch/csrc/correlation.cu for sm_90a into
-   lfr_tpu_torch/_build/ (plain-C library loaded with ctypes).
+2. build:   nvcc builds each of lfr_tpu_torch/csrc/correlation.cu and
+   nn_dist.cu for sm_90a into a library of its own under
+   lfr_tpu_torch/_build/ (plain-C libraries loaded with ctypes), the two
+   nvcc processes started together.
+   jpeg:    the port's JPEG decoder on the seven fixture JPEGs; each decoded
+   RGB array's SHA-256 must equal FIXTURE_SHA256 of
+   tests/test_torch_jpeg.py (which holds them against cv2.imread); prints
+   the host's decode rate in microseconds per Mpix.
 3. kernels: each of the four correlation kernels on seeded inputs (asym,
    nonorm and matmul at B=4096, sym at B=2048), held against its plain
    PyTorch version; kernel, plain-version and one-PyTorch-call
@@ -17,7 +23,10 @@ Phases, each printing its seconds; any failure ends the run non-zero:
    could take (``bound_ms``); each kernel's line also carries the time of
    the previous kernel design, the WMMA kernel with f32 row staging that
    this one replaced (``ms_pr5``, a constant, NVIDIA H100 80GB HBM3 at
-   700 W).
+   700 W).  Then the nearest-neighbour kernel (nn_dist) against its plain
+   version on seeded points in both shapes of the evaluation at a reduced
+   size: squared distances within NN_ULPS, counts within each tolerance
+   equal except queries within NN_ULPS of tol^2.
 4. conv_rounding: FoldedConv on the card at each of the 12 conv shapes of
    the main path (lfr_tpu_torch.models.panet.MAIN_PATH_CONVS, batch 16),
    against the one-rounding result bf16(max(conv_f32 + bias, 0)) from an
@@ -70,15 +79,37 @@ Phases, each printing its seconds; any failure ends the run non-zero:
    equal except gate near-ties (at most GATE_DIFFER_SHARE of the points),
    xyz within XYZ_DEPTH_RTOL of the depth; the two card runs write the same
    bytes into two_view_geometries and points3D.txt.
-9. variants: scripts/bench_corr_variants_torch.py's run (asym, nonorm and
+9. benchmark_eth: ``benchmark eth`` (lfr_tpu_torch.pipelines.benchmark.run_eth)
+   with weights/panet_holdout.msgpack, ref and raw with the evaluation, on
+   synthetic.eth_workload: 30 rendered views of layered_scene at 1600x1067
+   (an ETH3D DSLR image after the sift caps), 640 planted points with 1 px
+   keypoint noise, exposure jitter 0.12, layered_surface_mesh() as the scan
+   (about 27M surface samples).  One ``{"benchmark_eth": ...}`` line with
+   every span of run_eth's timing, the match graph's matches/s, the
+   evaluation split into scan sampling, visibility and nn, and accuracy,
+   completeness and F1 per tolerance for ref and raw.  The nn_dist kernel
+   at the scene's two sizes (accuracy: reconstruction against the scan;
+   completeness: visible samples against the reconstruction) is held
+   against its plain version on the same inputs (NN_ULPS; counts equal
+   except ties) and timed beside the plain version, its instruction bound
+   and chunked torch.cdist, each on the full inputs.  Gates: (a) the
+   card's evaluation of the ref PLY against the host cKDTree route (f64):
+   a query may lie on the other side of a tolerance only if its f64
+   distance is within the f32 rounding margin of that tolerance
+   (STRADDLE_ULPS); (b) the visibility mask on the card against the CPU on
+   a reduced scan (VIS_SAMPLES): identical except samples within VIS_RTOL
+   of a bin's depth limit; (c) ref's accuracy at 1 cm at least
+   ETH_ACCURACY_MIN, which raw and the ref PLY shifted by CONTROL_SHIFT_M
+   along z must fail.
+10. variants: scripts/bench_corr_variants_torch.py's run (asym, nonorm and
    matmul kernels and two PyTorch calls at B=4096).
-10. the kernel list as one JSON line, the card's name and power limit, and
+11. the kernel list as one JSON line, the card's name and power limit, and
    the result line ``{"ok": true, "device": {...}}`` last.
 
 Each path's kernel launches are counted from 0 just before it runs and read
 just after; every kernel must be launched on at least one path.
 
-Imports torch, numpy and lfr_tpu_torch (whose solver uses scipy) only.
+Imports torch, numpy, scipy and lfr_tpu_torch only.
 """
 
 import json
@@ -187,6 +218,45 @@ NEAR_THRESHOLD = 1e-3
 GATE_DIFFER_SHARE = 1e-3
 XYZ_DEPTH_RTOL = 1e-4
 
+#: nn_dist against its plain version: the kernel's fused multiply-adds
+#: against the plain version's f64-formed ones may differ by one rounding
+#: where the f64 sum lands on an f32 midpoint (about one in 2^29).
+NN_ULPS = 2
+
+#: The nn_dist check's shapes: (queries, corpus) of the accuracy and the
+#: completeness direction at a reduced size.
+NN_CHECK_SHAPES = ((4096, 1_000_003), (1_000_003, 700))
+
+#: H100 SXM FP32 lanes per SM (instruction issue: 4 schedulers x 32) and the
+#: FP32 instructions of one query-corpus pair (3 subtractions, a product, 2
+#: fused multiply-adds, a minimum).
+FP32_LANES_PER_SM = 128
+NN_INSTRUCTIONS_PER_PAIR = 7
+
+#: Card (f32) against the host cKDTree (f64): a query may fall on the other
+#: side of a tolerance t only if its f64 distance lies within
+#: sqrt(3) * spacing_f32(largest |coordinate|) (each coordinate is rounded to
+#: f32 on upload) + STRADDLE_ULPS * spacing_f32(t) (the f32 differences,
+#: fused sums and tol^2 round a few times, each by at most an ulp of t) of t.
+STRADDLE_ULPS = 8
+
+#: The benchmark_eth phase's scene seed.
+ETH_SEED = 4
+
+#: Accuracy gate: ref's accuracy at 1 cm must be at least ETH_ACCURACY_MIN;
+#: raw (no refinement) and the ref PLY shifted by CONTROL_SHIFT_M along z
+#: (the scene's surfaces are planes of constant z) must fail it.  The bound
+#: lies between the card's readings (PERF.md): ref 0.857-0.860, raw
+#: 0.715-0.739, shifted 0.066-0.076.
+ETH_ACCURACY_MIN = 0.8
+CONTROL_SHIFT_M = 0.02
+
+#: Visibility gate: card against CPU on every k-th scan sample, k chosen
+#: for about VIS_SAMPLES samples; a sample may differ only within VIS_RTOL
+#: of its bin's depth limit in some view.
+VIS_SAMPLES = 500_000
+VIS_RTOL = 1e-6
+
 #: Steps of the failed-Cholesky check.
 LM_CHECK_ITER = 4
 
@@ -205,6 +275,21 @@ def gpu_name_and_power():
         capture_output=True, text=True, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def reset_launches():
+    """Set every kernel's launch count to 0."""
+    from lfr_tpu_torch.ops import correlation, nn_dist
+
+    correlation.reset_launches()
+    nn_dist.reset_launches()
+
+
+def read_launches():
+    """Every kernel's launch count since the last reset_launches()."""
+    from lfr_tpu_torch.ops import correlation, nn_dist
+
+    return {**correlation.LAUNCHES, **nn_dist.LAUNCHES}
 
 
 def time_ms(fn, runs=20, warmup=3):
@@ -354,7 +439,7 @@ def conv_rounding_phase():
     return rows
 
 
-def slice_phase(correlation):
+def slice_phase():
     import torch
 
     from lfr_tpu_torch.models.checkpoint import load_variables
@@ -368,13 +453,13 @@ def slice_phase(correlation):
     prep1 = prepare_image(image1, "cuda")
     prep2 = prepare_image(image2, "cuda")
 
-    launches = {key: 0 for key in correlation.LAUNCHES}
+    launches = {key: 0 for key in read_launches()}
     results = {}
     for mode in ("crop", "grid"):
         t0 = time.perf_counter()
         refiner = TwoViewRefiner(variables, batch_size=BATCH, fine_mode=mode, device="cuda")
         torch.cuda.reset_peak_memory_stats()
-        correlation.reset_launches()
+        reset_launches()
         refiner.refine_matches(prep1, kps1, prep2, kps2, matches)  # warm-up
         torch.cuda.synchronize()
         t1 = time.perf_counter()
@@ -383,10 +468,10 @@ def slice_phase(correlation):
         ]
         outs = [refiner.resolve_refined(h) for h in handles]
         dt = (time.perf_counter() - t1) / REPS
-        counts = dict(correlation.LAUNCHES)
+        counts = read_launches()
         calls = REPS + 1
         want = {"corr_sym": calls * chunks, "corr_asym": 9 * calls * chunks,
-                "corr_nonorm": 0, "corr_matmul": 0}
+                "corr_nonorm": 0, "corr_matmul": 0, "nn_dist": 0}
         if counts != want:
             raise RuntimeError(f"{mode}: kernel launches {counts}, expected {want}")
         for key in launches:
@@ -418,7 +503,7 @@ def slice_phase(correlation):
     return launches, results
 
 
-def match_graph_phase(correlation, tmp):
+def match_graph_phase(tmp):
     """compute_match_graph on the synthetic scene written to ``tmp``, then
     the checks.  The MatchingFile stays in ``tmp`` for the solve phase."""
     import torch
@@ -444,18 +529,18 @@ def match_graph_phase(correlation, tmp):
     refiner = TwoViewRefiner(variables, batch_size=BATCH, fine_mode="crop", device="cuda")
     spans = {}
     torch.cuda.reset_peak_memory_stats()
-    correlation.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     written = compute_match_graph(tmp, scene["match_list"], method, output,
                                   refiner=refiner, sub_spans=spans, progress=False)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    counts = dict(correlation.LAUNCHES)
+    counts = read_launches()
     peak = torch.cuda.max_memory_allocated() / 2**30
 
     batches = spans["refine_dispatch"]["calls"]
     want = {"corr_sym": batches, "corr_asym": 9 * batches, "corr_nonorm": 0,
-            "corr_matmul": 0}
+            "corr_matmul": 0, "nn_dist": 0}
     if counts != want:
         raise RuntimeError(f"match_graph: kernel launches {counts}, expected {want}")
     names = scene["images"]
@@ -989,14 +1074,364 @@ def triangulation_phase(tmp):
     return lines
 
 
-def variants_phase(correlation):
+def _fixture_sha256():
+    """FIXTURE_SHA256 of tests/test_torch_jpeg.py, read without importing the
+    test (it imports cv2 and jax, which the card's machine lacks)."""
+    import ast
+
+    with open(os.path.join(HERE, "tests", "test_torch_jpeg.py")) as fh:
+        tree = ast.parse(fh.read())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "FIXTURE_SHA256" for t in node.targets):
+            return ast.literal_eval(node.value)
+    raise RuntimeError("tests/test_torch_jpeg.py has no FIXTURE_SHA256")
+
+
+def jpeg_phase():
+    """The port's JPEG decoder on the fixture JPEGs, against the SHA-256 of
+    cv2.imread's arrays; the host decode rate."""
+    import hashlib
+
+    from lfr_tpu_torch.io.images import load_image_rgb
+
+    want = _fixture_sha256()
+    seconds, pixels = 0.0, 0
+    for rel, sha in sorted(want.items()):
+        t0 = time.perf_counter()
+        image = load_image_rgb(os.path.join(HERE, "tests", "fixtures", rel))
+        seconds += time.perf_counter() - t0
+        pixels += image.shape[0] * image.shape[1]
+        got = hashlib.sha256(np.ascontiguousarray(image).tobytes()).hexdigest()
+        if got != sha:
+            raise RuntimeError(f"jpeg: {rel} decodes to SHA-256 {got}, cv2.imread's is {sha}")
+    line = {"images": len(want), "sha256_equal": len(want), "decode_s": seconds,
+            "megapixels": pixels / 1e6, "us_per_mpix": seconds * 1e6 / (pixels / 1e6),
+            "where": "host CPU of the card's machine, Python Huffman stage"}
+    print(json.dumps({"jpeg": line}), flush=True)
+
+
+def _ulps(a, b):
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    return np.abs(a.astype(np.float64) - b) / np.spacing(np.maximum(a, b))
+
+
+def _near_tol2(d2, tol2):
+    return int((np.abs(np.asarray(d2, np.float64) - tol2) <= NN_ULPS * np.spacing(tol2)).sum())
+
+
+def nn_kernel_check(nn_dist):
+    """nn_dist against its plain version on the card at NN_CHECK_SHAPES;
+    returns the largest |kernel - plain| of the squared distances."""
+    import torch
+
+    from lfr_tpu_torch.config import ETH3D_TOLERANCES
+
+    tol2 = np.square(np.asarray(ETH3D_TOLERANCES, np.float32))
+    rng = np.random.default_rng(5)
+    worst = 0.0
+    for nq, nc in NN_CHECK_SHAPES:
+        corpus = rng.uniform((-1, -1, 5.5), (1, 1, 6.5), (nc, 3)).astype(np.float32)
+        queries = rng.uniform((-1.2, -1.2, 5.3), (1.2, 1.2, 6.7), (nq, 3)).astype(np.float32)
+        q, c = torch.from_numpy(queries).cuda(), torch.from_numpy(corpus).cuda()
+        got = nn_dist.nn_min_sq(q, c)
+        torch.cuda.synchronize()
+        want = nn_dist.min_sq_reference(q, c).cpu().numpy()
+        got = got.cpu().numpy()
+        ulps = float(_ulps(got, want).max())
+        err = float(np.abs(got - want).max())
+        counts = nn_dist.count_within(q, c, ETH3D_TOLERANCES)
+        for n, t2 in zip(counts, tol2):
+            if abs(int(n) - int((want <= t2).sum())) > _near_tol2(want, t2):
+                raise RuntimeError(f"nn_dist {nq}x{nc}: count within {t2} differs beyond ties")
+        line = {"queries": nq, "corpus": nc, "max_ulps": ulps, "max_abs_err": err,
+                "qpt_chunk": nn_dist.launch_plan(
+                    nq, nc, torch.cuda.get_device_properties(0).multi_processor_count)}
+        print(json.dumps({"nn_dist_check": line}), flush=True)
+        if not ulps <= NN_ULPS:
+            raise RuntimeError(f"nn_dist {nq}x{nc}: {ulps} ulps from the plain version")
+        worst = max(worst, err)
+        del q, c
+    return worst
+
+
+def _max_sm_clock_hz():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def _library_min(q, c, chunk=2**20):
+    """torch.cdist without the matmul identity, chunked over the larger side,
+    then the minimum over the corpus: the yardstick, never the port's."""
+    import torch
+
+    if q.shape[0] >= c.shape[0]:
+        return torch.cat([torch.cdist(q[i:i + chunk], c, compute_mode="donot_use_mm_for_euclid_dist")
+                          .amin(1) for i in range(0, q.shape[0], chunk)])
+    best = None
+    for j in range(0, c.shape[0], chunk):
+        d = torch.cdist(q, c[j:j + chunk], compute_mode="donot_use_mm_for_euclid_dist").amin(1)
+        best = d if best is None else torch.minimum(best, d)
+    return best
+
+
+def _timed_once(fn):
+    """(ms, result) of one call of fn(), from CUDA events."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop), out
+
+
+def nn_full_size(nn_dist, rec, scan, visible):
+    """The kernel at the scene's two sizes (accuracy: the reconstruction
+    against the scan; completeness: the visible samples against the
+    reconstruction), held against its plain version on the same inputs
+    (NN_ULPS; counts within each tolerance equal except queries within
+    NN_ULPS of tol^2), with its time, the plain version's, its bound and
+    torch.cdist's on the full inputs.  Returns the numbers and the kernel's
+    squared distances of each direction."""
+    import torch
+
+    from lfr_tpu_torch.config import ETH3D_TOLERANCES
+
+    tol2 = np.square(np.asarray(ETH3D_TOLERANCES, np.float32))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    issue_per_s = sms * FP32_LANES_PER_SM * _max_sm_clock_hz()
+    acc_q = torch.from_numpy(np.ascontiguousarray(rec, np.float32)).cuda()
+    directions = {
+        "accuracy": (acc_q, torch.from_numpy(np.ascontiguousarray(scan, np.float32)).cuda()),
+        "completeness": (torch.from_numpy(np.ascontiguousarray(visible, np.float32)).cuda(), acc_q),
+    }
+    out, d2 = {"issue_rate_per_s": issue_per_s}, {}
+    for name in ("accuracy", "completeness"):
+        q, c = directions.pop(name)
+        pairs = q.shape[0] * c.shape[0]
+        ops_ms = pairs * NN_INSTRUCTIONS_PER_PAIR / issue_per_s * 1e3
+        bytes_ms = ((q.shape[0] + c.shape[0]) * 12 + q.shape[0] * 4) / HBM_BYTES_PER_S * 1e3
+        ms = time_ms(lambda: nn_dist.nn_min_sq(q, c), runs=10, warmup=2)
+        got = nn_dist.nn_min_sq(q, c).cpu().numpy()
+        plain_ms, want = _timed_once(lambda: nn_dist.min_sq_reference(q, c))
+        want = want.cpu().numpy()
+        _library_min(q[:8], c[:4096])  # warm-up
+        library_ms, _ = _timed_once(lambda: _library_min(q, c))
+        ulps = float(_ulps(got, want).max())
+        differ = [abs(int((got <= t2).sum()) - int((want <= t2).sum())) for t2 in tol2]
+        ties = [_near_tol2(want, t2) for t2 in tol2]
+        out[name] = {
+            "queries": q.shape[0], "corpus": c.shape[0], "pairs": pairs,
+            "qpt_chunk": nn_dist.launch_plan(q.shape[0], c.shape[0], sms),
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "max_ulps": ulps, "max_abs_err": float(np.abs(got - want).max()),
+            "count_differ": differ, "ties": ties,
+        }
+        if not ulps <= NN_ULPS:
+            raise RuntimeError(f"nn_dist {name}: {ulps} ulps from the plain version")
+        if any(d > t for d, t in zip(differ, ties)):
+            raise RuntimeError(f"nn_dist {name}: counts differ from the plain version "
+                               f"{differ} beyond ties {ties}")
+        d2[name] = got
+        del q, c
+    return out, d2
+
+
+def _straddle_margin(scale, t):
+    """How far from a tolerance t the f64 distance of a query may lie and
+    still fall on the other side of t on the card (STRADDLE_ULPS)."""
+    return float(np.sqrt(3.0) * np.spacing(np.float32(scale))
+                 + STRADDLE_ULPS * np.spacing(np.float32(t)))
+
+
+def _depth_margins(points, model, idx):
+    """For the samples ``idx`` of ``points``: the smallest relative distance,
+    over the views in which each lands in frame, of its depth from its bin's
+    depth limit (1.02 x the bin's nearest splatted depth), in f64 on the
+    host."""
+    from lfr_tpu_torch.io.colmap_model import qvec_to_rotmat
+    from lfr_tpu_torch.sfm.cameras import calibration_matrix
+
+    pts = points.astype(np.float64)
+    images = sorted(model.images.values(), key=lambda im: im.image_id)
+    grid_w = int(np.ceil(max(model.cameras[im.camera_id].width for im in images) / 8))
+    margin = np.full(len(idx), np.inf)
+    for im in images:
+        cam = model.cameras[im.camera_id]
+        K = calibration_matrix(cam)
+        c = pts @ qvec_to_rotmat(im.qvec).T + im.tvec
+        z = c[:, 2]
+        front = z > 1e-9
+        zs = np.where(front, z, 1.0)
+        gx = np.floor((K[0, 0] * c[:, 0] / zs + K[0, 2]) / 8)
+        gy = np.floor((K[1, 1] * c[:, 1] / zs + K[1, 2]) / 8)
+        inb = front & (gx >= 0) & (gy >= 0) & (gx < np.ceil(cam.width / 8)) & (
+            gy < np.ceil(cam.height / 8))
+        bins = np.where(inb, gy * grid_w + gx, -1).astype(np.int64)
+        depth = np.full(int(bins.max()) + 2, np.inf)
+        sub = np.arange(0, len(pts), 4)
+        keep = sub[inb[sub]]
+        np.minimum.at(depth, bins[keep], z[keep])
+        limit = depth[bins[idx]] * 1.02 + 1e-9
+        rel = np.where(inb[idx], np.abs(z[idx] - limit) / limit, np.inf)
+        margin = np.minimum(margin, rel)
+    return margin
+
+
+def benchmark_eth_phase(nn_dist, tmp):
+    """run_eth on the card's scene; the nn_dist kernel against its plain
+    version at the scene's sizes, with its numbers; the evaluation gates and
+    their controls.  Returns (the path's launch counts, the nn_dist kernel
+    row)."""
+    import torch
+    from scipy.spatial import cKDTree
+
+    from lfr_tpu_torch.config import ETH3D_TOLERANCES
+    from lfr_tpu_torch.eval import eth3d
+    from lfr_tpu_torch.io.colmap_model import read_model, read_ply_xyz
+    from lfr_tpu_torch.pipelines.benchmark import run_eth
+    from lfr_tpu_torch.utils import synthetic
+
+    root = os.path.join(tmp, "eth_scene")
+    t0 = time.perf_counter()
+    synthetic.eth_workload(np.random.default_rng(ETH_SEED), root)
+    made_s = time.perf_counter() - t0
+    reset_launches()
+    t0 = time.perf_counter()
+    results = run_eth(root, "sift", output_path=os.path.join(tmp, "eth_out"),
+                      checkpoint=os.path.join(HERE, "weights", "panet_holdout.msgpack"),
+                      verbose=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_launches()
+    if counts["nn_dist"] == 0 or counts["corr_sym"] == 0 or counts["corr_asym"] == 0:
+        raise RuntimeError(f"benchmark_eth: kernel launches {counts}")
+
+    spans = {s["span"]: s["ms"] / 1e3 for s in results["timing"]}
+    mg = results["match_graph_breakdown"]
+    tols = list(ETH3D_TOLERANCES)
+    line = {
+        "scene": {**synthetic.ETH_SCENE, "seed": ETH_SEED, "made_s": made_s},
+        "seconds": seconds,
+        "spans_s": spans,
+        "refined_matches": mg["n_refined_matches"],
+        "match_graph_matches_per_s": mg["n_refined_matches"] / spans["match_graph"],
+        "match_graph_breakdown": mg,
+        "launches": counts,
+    }
+    for tag in ("ref", "raw"):
+        ev = results[tag]["evaluation"]
+        line[tag] = {"points": results[tag]["triangulation"]["num_sparse_points"],
+                     "registered": results[tag]["triangulation"]["num_reg_images"],
+                     "mean_reproj_error": results[tag]["triangulation"]["mean_reproj_error"],
+                     "tolerances": tols, "accuracies": ev["accuracies"],
+                     "completenesses": ev["completenesses"], "f1_scores": ev["f1_scores"],
+                     "evaluation_mode": ev["evaluation_mode"],
+                     "evaluation_split_s": {k: spans[f"evaluation_{tag}/{k}"]
+                                            for k in ("scan", "visibility", "nn")}}
+    print(json.dumps({"benchmark_eth": line}), flush=True)
+    for tag in ("ref", "raw"):
+        if line[tag]["registered"] != synthetic.ETH_SCENE["num_cameras"]:
+            raise RuntimeError(f"benchmark_eth {tag}: {line[tag]['registered']} images registered")
+
+    scan_file = os.path.join(root, "dslr_scan_eval", "scan_alignment.mlp")
+    gt_dir = os.path.join(root, "dslr_calibration_undistorted")
+    scan, _ = eth3d._load_scan_cached(scan_file, eth3d.SURFACE_SPACING)
+    visible = eth3d._visible_scan_cached(scan, scan_file, gt_dir, 1)
+    rec = read_ply_xyz(os.path.join(root, "sparse-sift-ref.ply"))
+
+    numbers, d2 = nn_full_size(nn_dist, rec, scan, visible)
+    print(json.dumps({"nn_dist_full_size": numbers}), flush=True)
+
+    # (a) The card's evaluation against the host cKDTree route (f64): a
+    # query may change sides of a tolerance only within _straddle_margin.
+    t0 = time.perf_counter()
+    d64 = {"accuracy": cKDTree(scan).query(rec, k=1, workers=-1)[0],
+           "completeness": cKDTree(rec).query(visible, k=1, workers=-1)[0]}
+    cpu_s = time.perf_counter() - t0
+    tol2 = np.square(np.asarray(tols, np.float32))
+    card_ev = results["ref"]["evaluation"]
+    check = {"cpu_kdtree_s": cpu_s, "scan_samples": int(scan.shape[0]),
+             "visible_samples": int(visible.shape[0]), "points": int(rec.shape[0])}
+    for key, name, queries, corpus in (("accuracies", "accuracy", rec, scan),
+                                       ("completenesses", "completeness", visible, rec)):
+        n = queries.shape[0]
+        card_counts = [int((d2[name] <= t2).sum()) for t2 in tol2]
+        if card_ev[key] != [k / n for k in card_counts]:
+            raise RuntimeError(f"benchmark_eth: {key} {card_ev[key]} are not the kernel's counts")
+        scale = max(float(np.abs(queries).max()), float(np.abs(corpus).max()))
+        sides, near, far = [], [], []
+        for t2, t in zip(tol2, tols):
+            flip = (d2[name] <= t2) != (d64[name] <= t)
+            close = np.abs(d64[name] - t) <= _straddle_margin(scale, t)
+            sides.append(int(flip.sum()))
+            near.append(int(close.sum()))
+            far.append(int((flip & ~close).sum()))
+        check[key] = {"card": card_ev[key], "cpu": [float((d64[name] <= t).mean()) for t in tols],
+                      "other_side": sides, "near_tolerance": near,
+                      "margins_m": [_straddle_margin(scale, t) for t in tols]}
+        if any(far):
+            raise RuntimeError(f"benchmark_eth: {key}: {far} queries on the other side of a "
+                               f"tolerance from the CPU's, beyond the margin")
+
+    # (b) The visibility mask on the card against the CPU, reduced scan.
+    step = max(1, scan.shape[0] // VIS_SAMPLES)
+    sub = np.ascontiguousarray(scan[::step], np.float32)
+    model = read_model(gt_dir)
+    masks = {dev: eth3d.scan_visibility_mask(sub, model, device=dev) for dev in ("cuda", "cpu")}
+    differ = np.nonzero(masks["cuda"] != masks["cpu"])[0]
+    margins = _depth_margins(sub, model, differ) if len(differ) else np.zeros(0)
+    check["visibility"] = {"samples": int(sub.shape[0]), "visible": int(masks["cuda"].sum()),
+                           "differ": int(len(differ)),
+                           "max_margin": float(margins.max()) if len(differ) else 0.0}
+    if len(differ) and not margins.max() <= VIS_RTOL:
+        raise RuntimeError(f"benchmark_eth: visibility card vs CPU {check['visibility']}")
+
+    # (c) The accuracy gate and its two controls: raw, and ref shifted.
+    shifted = rec + np.array([0.0, 0.0, CONTROL_SHIFT_M])
+    control = eth3d.evaluate_point_cloud(shifted, scan, scan_completeness=visible)
+    raw_acc = results["raw"]["evaluation"]["accuracies"][0]
+    check["accuracy_gate"] = {
+        "bound": ETH_ACCURACY_MIN, "ref": card_ev["accuracies"][0], "raw": raw_acc,
+        "control_shifted_2cm": control["accuracies"][0]}
+    print(json.dumps({"benchmark_eth_check": check}), flush=True)
+    if not card_ev["accuracies"][0] >= ETH_ACCURACY_MIN:
+        raise RuntimeError(f"benchmark_eth: ref accuracy at 1 cm {card_ev['accuracies'][0]}")
+    if raw_acc >= ETH_ACCURACY_MIN or control["accuracies"][0] >= ETH_ACCURACY_MIN:
+        raise RuntimeError(f"benchmark_eth: a control passes the accuracy gate {check}")
+
+    dirs = [numbers[k] for k in ("accuracy", "completeness")]
+    row = {
+        "name": "nn_dist",
+        "route": "cuda",
+        "source": "lfr_tpu_torch/csrc/nn_dist.cu",
+        "replaces": "not a TPU kernel: XLA-fused jnp of lfr_tpu/eval/eth3d.py:234 "
+                    "(_all_min_impl) and :283 (_count_within_impl)",
+        "ms": sum(d["ms"] for d in dirs),
+        "plain_ms": sum(d["plain_ms"] for d in dirs),
+        "bound_ms": sum(d["bound_ms"] for d in dirs),
+        "bound_by": "operations",
+        "library_ms": sum(d["library_ms"] for d in dirs),
+        "max_abs_err": max(d["max_abs_err"] for d in dirs),
+    }
+    return counts, row
+
+
+def variants_phase():
     """scripts/bench_corr_variants_torch.py's path at B=4096."""
     sys.path.insert(0, os.path.join(HERE, "scripts"))
     import bench_corr_variants_torch
 
-    correlation.reset_launches()
+    reset_launches()
     lines = bench_corr_variants_torch.run()
-    counts = dict(correlation.LAUNCHES)
+    counts = read_launches()
     print(json.dumps({"variants": lines, "launches": counts}), flush=True)
     return counts
 
@@ -1010,7 +1445,7 @@ def main() -> int:
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from lfr_tpu_torch.ops import correlation, cuda_build
+    from lfr_tpu_torch.ops import correlation, cuda_build, nn_dist
 
     card = gpu_name_and_power()
     print(f"card: {card}", flush=True)
@@ -1029,14 +1464,19 @@ def main() -> int:
     phase("device", t0)
 
     t0 = time.perf_counter()
-    path, seconds, log = cuda_build.build()
-    print(f"built {os.path.relpath(path, HERE)} in {seconds:.3f} s", flush=True)
-    print(log.strip(), flush=True)
-    cuda_build.library()
+    for name, (path, seconds, log) in cuda_build.build_all().items():
+        print(f"built {os.path.relpath(path, HERE)} in {seconds:.3f} s", flush=True)
+        print(log.strip(), flush=True)
+        cuda_build.library(name)
     phase("build", t0)
 
     t0 = time.perf_counter()
+    jpeg_phase()
+    phase("jpeg", t0)
+
+    t0 = time.perf_counter()
     rows = kernel_phase(correlation)
+    nn_err = nn_kernel_check(nn_dist)
     phase("kernels", t0)
 
     t0 = time.perf_counter()
@@ -1045,13 +1485,13 @@ def main() -> int:
 
     paths = {}
     t0 = time.perf_counter()
-    paths["two_view"], _ = slice_phase(correlation)
+    paths["two_view"], _ = slice_phase()
     phase("slice", t0)
 
     tmp = tempfile.mkdtemp(prefix="lfr_match_graph_")
     try:
         t0 = time.perf_counter()
-        paths["match_graph"], matches_file = match_graph_phase(correlation, tmp)
+        paths["match_graph"], matches_file = match_graph_phase(tmp)
         phase("match_graph", t0)
 
         t0 = time.perf_counter()
@@ -1059,15 +1499,21 @@ def main() -> int:
         phase("solve", t0)
 
         t0 = time.perf_counter()
-        correlation.reset_launches()
+        reset_launches()
         triangulation_phase(tmp)
-        paths["triangulation"] = dict(correlation.LAUNCHES)
+        paths["triangulation"] = read_launches()
         phase("triangulation", t0)
+
+        t0 = time.perf_counter()
+        paths["benchmark_eth"], nn_row = benchmark_eth_phase(nn_dist, tmp)
+        nn_row["max_abs_err"] = max(nn_err, nn_row["max_abs_err"])
+        rows.append(nn_row)
+        phase("benchmark_eth", t0)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     t0 = time.perf_counter()
-    paths["variants"] = variants_phase(correlation)
+    paths["variants"] = variants_phase()
     phase("variants", t0)
 
     for row in rows:

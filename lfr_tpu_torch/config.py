@@ -3,7 +3,7 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Tuple
 
 #: Side length of the square patches fed to the flow CNN.
 PATCH_SIZE: int = 33
@@ -85,3 +85,8 @@ def downscale_factor(height: int, width: int, max_edge: int, max_sum_edges: int)
     """Image downscale factor used before matching and refinement:
     max(1, max edge / max_edge, sum of edges / max_sum_edges)."""
     return max(1.0, max(height, width) / max_edge, (height + width) / max_sum_edges)
+
+
+#: ETH3D evaluation tolerances in scene units (metres on ETH3D), copied
+#: from lfr_tpu.config (reference: eth/benchmark.py:141).
+ETH3D_TOLERANCES: Tuple[float, ...] = (0.01, 0.02, 0.05, 0.1, 0.2, 0.5)

@@ -1,9 +1,11 @@
 """Host-side image loading and resizing (port of lfr_tpu/io/images.py).
 
-Images are decoded by the port's own PNG reader (:mod:`.png`): the port
+Images are decoded by the port's own PNG and baseline JPEG readers
+(:mod:`.png`, :mod:`.jpeg`), chosen by the file's magic bytes: the port
 uses neither OpenCV nor PIL.  Grayscale is promoted to 3 channels and an
-alpha channel is dropped, as ``cv2.imread`` and PIL's ``convert("RGB")`` do.
-JPEG and other formats raise.  Downscaling by ``fact`` gives what the
+alpha channel is dropped, as ``cv2.imread`` does; a JPEG decodes bit for
+bit as ``cv2.imread`` decodes it, EXIF orientation included.  Other
+formats raise.  Downscaling by ``fact`` gives what the
 reference's ``cv2.resize(image, None, fx=1/fact, fy=1/fact,
 interpolation=cv2.INTER_AREA)`` gives: an output of round(h/fact) x
 round(w/fact), each pixel the average over its window of width ``fact``,
@@ -22,6 +24,7 @@ import torch
 
 from ..config import downscale_factor
 from ..ops.image_ops import area_resize
+from .jpeg import decode_jpeg
 from .png import SIGNATURE, decode_png
 
 
@@ -29,13 +32,15 @@ def load_image_rgb(path: str) -> np.ndarray:
     """Load an image as (H, W, 3) uint8 RGB."""
     with open(path, "rb") as fh:
         data = fh.read()
-    if not data.startswith(SIGNATURE):
-        kind = "a JPEG" if data[:3] == b"\xff\xd8\xff" else "not a PNG"
+    if data.startswith(SIGNATURE):
+        image = decode_png(data)
+    elif data.startswith(b"\xff\xd8"):
+        return decode_jpeg(data)
+    else:
         raise ValueError(
-            f"{path} is {kind} file: lfr_tpu_torch decodes PNG only "
-            "(8-bit grayscale, RGB or RGBA)"
+            f"{path} is neither a PNG nor a JPEG file: lfr_tpu_torch decodes "
+            "PNG (8-bit grayscale, RGB or RGBA) and baseline JPEG only"
         )
-    image = decode_png(data)
     if image.ndim == 2:
         image = np.repeat(image[:, :, None], 3, axis=-1)
     return np.ascontiguousarray(image[:, :, :3])

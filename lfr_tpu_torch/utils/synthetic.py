@@ -2,17 +2,21 @@
 smoke run.
 
 A numpy-only copy of ``textured_image``, ``shifted_pair``,
-``planted_features``, ``Scene``, ``random_scene`` and ``make_eth3d_dataset``
-from lfr_tpu.utils.synthetic: the same seed gives the same arrays in both
-packages.  :func:`bench_workload` is bench.py's two-view workload,
+``planted_features``, ``Scene``, ``random_scene``, ``planar_scene``,
+``layered_scene`` (with ``DEFAULT_SLABS``), their surface meshes and
+``make_eth3d_dataset`` from lfr_tpu.utils.synthetic: the same seed gives
+the same arrays in both packages.  :func:`bench_workload` is bench.py's two-view workload,
 :func:`match_graph_workload` writes a scene of PNG images and feature files
 for the match graph, :func:`solver_graph` is a match graph for the
 multi-view solver, and :func:`triangulation_workload` writes an ETH3D-layout
-scene with its MatchingFile and SolutionFile for the triangulation chain.
+scene with its MatchingFile and SolutionFile for the triangulation chain,
+and :func:`eth_workload` writes the rendered scene with its scan mesh that
+``benchmark eth`` runs on the card.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import os
 from typing import List, Tuple
@@ -285,6 +289,180 @@ def random_scene(
     )
 
 
+def _arc_poses(num_cameras: int, look_z: float) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """Camera ring poses: (R, center) per camera, all seeing z=look_z.
+
+    Cameras sit on an arc of radius ``look_z`` about the surface center
+    with a small vertical offset per camera.  The angular step is 0.1 rad
+    for small rigs (matching the original 4-camera layouts) but the TOTAL
+    span is capped at 1.2 rad and the vertical run at 1.8 units, so rigs
+    of any size keep every camera pointed at the surface (a 100-camera
+    rig with a fixed 0.1-rad step would span +-4.95 rad — most cameras
+    facing away from the scene entirely)."""
+    arc_step = 0.1 if num_cameras <= 13 else 1.2 / (num_cameras - 1)
+    y_step = 0.15 if num_cameras <= 13 else 1.8 / (num_cameras - 1)
+    poses = []
+    for c in range(num_cameras):
+        angle = (c - (num_cameras - 1) / 2) * arc_step
+        Ry = np.array(
+            [
+                [np.cos(angle), 0, np.sin(angle)],
+                [0, 1, 0],
+                [-np.sin(angle), 0, np.cos(angle)],
+            ]
+        )
+        center = np.array(
+            [look_z * np.sin(angle), y_step * c, look_z - look_z * np.cos(angle)]
+        )
+        poses.append((Ry, center))
+    return poses
+
+
+def _exposure_jitter(img: np.ndarray, rng: np.random.Generator, amount: float) -> np.ndarray:
+    """Per-view photometric change: gain + gamma (different cameras/exposures)."""
+    gain = 1.0 + rng.uniform(-amount, amount)
+    gamma = float(np.exp(rng.uniform(-amount, amount)))
+    out = np.clip(img.astype(np.float64) * gain, 0, 255)
+    out = 255.0 * (out / 255.0) ** gamma
+    return np.clip(out, 0, 255)
+
+
+def planar_scene(
+    rng: np.random.Generator,
+    num_points: int = 150,
+    num_cameras: int = 4,
+    width: int = 640,
+    height: int = 480,
+    plane_z: float = 6.0,
+    plane_half: float = 2.6,
+    tex_px_per_unit: float = 220.0,
+    texture: np.ndarray = None,
+    depth_step: float = 0.0,
+    exposure_jitter: float = 0.0,
+) -> Tuple["Scene", List[np.ndarray]]:
+    """A textured plane photographed by an arc of cameras.
+
+    Unlike :func:`random_scene`, the rendered images show the *same*
+    surface, so patch-based refinement has real correspondences to align.
+    ``texture``: optional (H, W, 3) image (e.g. a real photograph) to map
+    onto the plane — tiled/cropped to the needed size; default random
+    synthetic texture.  ``depth_step``: when nonzero, the x<0 half of the
+    surface sits at plane_z - depth_step and the x>=0 half at
+    plane_z + depth_step — a piecewise-planar relief that keeps the
+    essential matrix well-conditioned (a single plane is degenerate for
+    E-based SfM initialization; COLMAP falls back to homography there).
+    ``exposure_jitter``: per-view gain/gamma jitter amplitude (e.g. 0.15)
+    emulating exposure changes between photographs.
+    Returns (scene, images); scene.points lie on the surface.
+    """
+    tex_size = int(2 * plane_half * tex_px_per_unit) + 64
+    if texture is None:
+        texture = textured_image(rng, tex_size, tex_size).astype(np.float32)
+    else:
+        texture = np.asarray(texture, np.float32)
+        reps = (
+            -(-tex_size // texture.shape[0]),
+            -(-tex_size // texture.shape[1]),
+        )
+        if max(reps) > 1:
+            texture = np.tile(texture, (reps[0], reps[1], 1))
+        texture = texture[:tex_size, :tex_size]
+
+    px = rng.uniform(-plane_half * 0.8, plane_half * 0.8, num_points)
+    pz = plane_z + np.where(px < 0, -depth_step, depth_step)
+    points = np.stack(
+        [
+            px,
+            rng.uniform(-plane_half * 0.8, plane_half * 0.8, num_points),
+            pz,
+        ],
+        axis=1,
+    )
+
+    f = 500.0
+    K = np.array([[f, 0, width / 2], [0, f, height / 2], [0, 0, 1.0]])
+    Kinv = np.linalg.inv(K)
+
+    def tex_coords(xy_world):
+        """Plane (x, y) -> texture (row, col)."""
+        u = (xy_world[..., 0] + plane_half) * tex_px_per_unit + 32
+        v = (xy_world[..., 1] + plane_half) * tex_px_per_unit + 32
+        return v, u  # row = y, col = x
+
+    def bilinear(tex, r, c):
+        r = np.clip(r, 0, tex.shape[0] - 2)
+        c = np.clip(c, 0, tex.shape[1] - 2)
+        r0 = np.floor(r).astype(int)
+        c0 = np.floor(c).astype(int)
+        fr = (r - r0)[..., None]
+        fc = (c - c0)[..., None]
+        return (
+            tex[r0, c0] * (1 - fr) * (1 - fc)
+            + tex[r0, c0 + 1] * (1 - fr) * fc
+            + tex[r0 + 1, c0] * fr * (1 - fc)
+            + tex[r0 + 1, c0 + 1] * fr * fc
+        )
+
+    rotations, translations, observations, visible, images = [], [], [], [], []
+    for c, (R, center) in enumerate(_arc_poses(num_cameras, plane_z)):
+        t = -R @ center
+
+        cam_pts = points @ R.T + t
+        uv = (cam_pts / cam_pts[:, 2:]) @ K.T
+        uv = uv[:, :2]
+        vis = (
+            (uv[:, 0] > 20) & (uv[:, 0] < width - 20) & (uv[:, 1] > 20) & (uv[:, 1] < height - 20)
+        )
+
+        # Render by inverse warping: pixel ray -> surface -> texture.
+        jj, ii = np.meshgrid(np.arange(width), np.arange(height))
+        rays = np.stack([jj, ii, np.ones_like(jj)], axis=-1).astype(np.float64) @ Kinv.T
+        # World ray direction and origin.
+        d = rays @ R  # R^T @ ray per pixel
+        o = center
+        if depth_step == 0.0:
+            lam = (plane_z - o[2]) / d[..., 2]
+            world = o[None, None] + lam[..., None] * d
+        else:
+            # Intersect both levels; keep the hit whose x sign matches its
+            # level (pixels straddling the step pick the nearer surface).
+            lam_a = (plane_z - depth_step - o[2]) / d[..., 2]
+            lam_b = (plane_z + depth_step - o[2]) / d[..., 2]
+            wa = o[None, None] + lam_a[..., None] * d
+            wb = o[None, None] + lam_b[..., None] * d
+            on_a = wa[..., 0] < 0
+            on_b = wb[..., 0] >= 0
+            # Default to whichever is geometrically consistent; where both
+            # or neither are, take the nearer intersection.
+            use_a = on_a & ~on_b
+            both = on_a & on_b
+            use_a = use_a | (both & (lam_a < lam_b))
+            world = np.where(use_a[..., None], wa, wb)
+        r_t, c_t = tex_coords(world[..., :2])
+        img = bilinear(texture, r_t, c_t)
+        img = np.clip(img, 0, 255)
+        if exposure_jitter:
+            img = _exposure_jitter(img, rng, exposure_jitter)
+        images.append(img.astype(np.uint8))
+
+        rotations.append(R)
+        translations.append(t)
+        observations.append(uv)
+        visible.append(vis)
+
+    scene = Scene(
+        points=points,
+        rotations=np.stack(rotations),
+        translations=np.stack(translations),
+        K=K,
+        width=width,
+        height=height,
+        observations=observations,
+        visible=visible,
+    )
+    return scene, images
+
+
 def _write_scan(root: str, scan_ply) -> None:
     """dslr_scan_eval/: the scan PLY (written by ``scan_ply(path)``) and an
     identity scan_alignment.mlp."""
@@ -524,3 +702,306 @@ def triangulation_workload(
     protos.write_solution_file(solution_file, solutions)
     return {"matches_file": matches_file, "solution_file": solution_file, "names": names,
             "points": points, "point_of_feature": point_of_feature, "rewired": rewired}
+
+
+# ---------------------------------------------------------------------------
+# Rendered scenes with a scan mesh, for the ETH3D benchmark driver
+# ---------------------------------------------------------------------------
+
+#: Default foreground slabs for :func:`layered_scene`: (z, x0, x1, y0, y1).
+DEFAULT_SLABS: Tuple[Tuple[float, float, float, float, float], ...] = (
+    (5.2, -1.9, -0.3, -1.4, 1.0),
+    (6.0, 0.4, 2.0, -0.8, 1.6),
+)
+
+
+def layered_scene(
+    rng: np.random.Generator,
+    num_points: int = 160,
+    num_cameras: int = 6,
+    width: int = 640,
+    height: int = 480,
+    bg_z: float = 7.0,
+    bg_half: float = 3.2,
+    slabs: Tuple[Tuple[float, float, float, float, float], ...] = DEFAULT_SLABS,
+    textures: List[np.ndarray] = None,
+    tex_px_per_unit: float = 200.0,
+    exposure_jitter: float = 0.0,
+    fg_point_frac: float = 0.5,
+) -> Tuple["Scene", List[np.ndarray]]:
+    """Occlusion-bearing multi-surface scene: textured slabs floating in
+    front of a textured background plane.
+
+    Unlike :func:`planar_scene`, patches near slab edges straddle DEPTH
+    DISCONTINUITIES — the two views of such a patch see different geometry
+    (foreground on one side, differently-moving background on the other),
+    the hard case for patch-alignment refinement on real data (the
+    reference CNN faces these constantly on ETH3D; its patches are plain
+    33x33 crops, two-view-refinement/refinement.py:23-43).  Per-camera
+    visibility accounts for slab occlusion of background points, and
+    ``exposure_jitter`` applies per-view gain/gamma.
+
+    ``slabs``: (z, x0, x1, y0, y1) rectangles parallel to the background
+    plane, z < bg_z.  ``textures``: [background, slab0, slab1, ...]; random
+    textures fill in for missing entries.  Half of each slab's points are
+    planted within 0.15 units (~14 px) of the slab boundary so refinement
+    is exercised exactly at occlusion edges.
+    Returns (scene, images); scene.points lie on the surfaces.
+    """
+    slabs = sorted(slabs, key=lambda s: s[0])  # nearest first
+    n_surf = 1 + len(slabs)
+    textures = list(textures) if textures else []
+
+    def prep_texture(idx: int, size_px: int) -> np.ndarray:
+        if idx < len(textures) and textures[idx] is not None:
+            tex = np.asarray(textures[idx], np.float32)
+            reps = (-(-size_px // tex.shape[0]), -(-size_px // tex.shape[1]))
+            if max(reps) > 1:
+                tex = np.tile(tex, (reps[0], reps[1], 1))
+            return tex[:size_px, :size_px]
+        return textured_image(rng, size_px, size_px).astype(np.float32)
+
+    # Render extent is twice the point-planting extent so no pixel ray
+    # falls off the textured background (off-plane rays would clamp to
+    # the texture border and render as streaks).
+    bg_render_half = 2.0 * bg_half
+    bg_size = int(2 * bg_render_half * tex_px_per_unit) + 64
+    bg_tex = prep_texture(0, bg_size)
+    slab_texs = []
+    for i, (z, x0, x1, y0, y1) in enumerate(slabs):
+        size = int(max(x1 - x0, y1 - y0) * tex_px_per_unit) + 64
+        slab_texs.append(prep_texture(1 + i, size))
+
+    # --- plant points: background + per-slab (half near the boundary) ---
+    n_fg = int(num_points * fg_point_frac)
+    n_bg = num_points - n_fg
+    pts = [
+        np.stack(
+            [
+                rng.uniform(-bg_half * 0.85, bg_half * 0.85, n_bg),
+                rng.uniform(-bg_half * 0.85, bg_half * 0.85, n_bg),
+                np.full(n_bg, bg_z),
+            ],
+            axis=1,
+        )
+    ]
+    per_slab = [n_fg // len(slabs)] * len(slabs)
+    per_slab[0] += n_fg - sum(per_slab)
+    edge_band = 0.15
+    for (z, x0, x1, y0, y1), n in zip(slabs, per_slab):
+        n_edge = n // 2
+        n_in = n - n_edge
+        pts.append(
+            np.stack(
+                [
+                    rng.uniform(x0 + edge_band, x1 - edge_band, n_in),
+                    rng.uniform(y0 + edge_band, y1 - edge_band, n_in),
+                    np.full(n_in, z),
+                ],
+                axis=1,
+            )
+        )
+        # Edge-band points: uniform along the perimeter, just inside.
+        side = rng.integers(0, 4, n_edge)
+        u = rng.uniform(0, 1, n_edge)
+        off = rng.uniform(0.02, edge_band, n_edge)
+        ex = np.where(
+            side == 0, x0 + off, np.where(side == 1, x1 - off, x0 + u * (x1 - x0))
+        )
+        ey = np.where(
+            side <= 1, y0 + u * (y1 - y0), np.where(side == 2, y0 + off, y1 - off)
+        )
+        pts.append(np.stack([ex, ey, np.full(n_edge, z)], axis=1))
+    points = np.concatenate(pts, axis=0)
+
+    f = 500.0
+    K = np.array([[f, 0, width / 2], [0, f, height / 2], [0, 0, 1.0]])
+    Kinv = np.linalg.inv(K)
+
+    def bilinear(tex, r, c):
+        r = np.clip(r, 0, tex.shape[0] - 2)
+        c = np.clip(c, 0, tex.shape[1] - 2)
+        r0 = np.floor(r).astype(int)
+        c0 = np.floor(c).astype(int)
+        fr = (r - r0)[..., None]
+        fc = (c - c0)[..., None]
+        return (
+            tex[r0, c0] * (1 - fr) * (1 - fc)
+            + tex[r0, c0 + 1] * (1 - fr) * fc
+            + tex[r0 + 1, c0] * fr * (1 - fc)
+            + tex[r0 + 1, c0 + 1] * fr * fc
+        )
+
+    def render(pose):
+        """The view from one pose, before its exposure jitter: the nearest
+        surface per pixel ray (no random numbers, so views render in
+        parallel)."""
+        R, center = pose
+        jj, ii = np.meshgrid(np.arange(width), np.arange(height))
+        rays = np.stack([jj, ii, np.ones_like(jj)], axis=-1).astype(np.float64) @ Kinv.T
+        d = rays @ R  # world-frame ray directions
+        o = center
+        dz = np.where(np.abs(d[..., 2]) > 1e-12, d[..., 2], 1e-12)
+        lam_bg = (bg_z - o[2]) / dz
+        world_bg = o[None, None] + lam_bg[..., None] * d
+        r_t = (world_bg[..., 1] + bg_render_half) * tex_px_per_unit + 32
+        c_t = (world_bg[..., 0] + bg_render_half) * tex_px_per_unit + 32
+        img = bilinear(bg_tex, r_t, c_t)
+        # Paint slabs far-to-near so the nearest valid hit wins.
+        for (z, x0, x1, y0, y1), tex in zip(slabs[::-1], slab_texs[::-1]):
+            lam = (z - o[2]) / dz
+            w = o[None, None] + lam[..., None] * d
+            on = (
+                (lam > 0)
+                & (w[..., 0] > x0)
+                & (w[..., 0] < x1)
+                & (w[..., 1] > y0)
+                & (w[..., 1] < y1)
+            )
+            # Sampled only where the slab is hit: the same values as the
+            # JAX package's full-frame sample and select, at a few percent
+            # of its cost on a 1600 x 1067 frame.
+            hit = w[on]
+            img[on] = bilinear(tex, (hit[:, 1] - y0) * tex_px_per_unit + 32,
+                               (hit[:, 0] - x0) * tex_px_per_unit + 32)
+        return np.clip(img, 0, 255)
+
+    look_z = 0.5 * (slabs[0][0] + bg_z)
+    poses = _arc_poses(num_cameras, look_z)
+    # numpy releases the GIL in its array loops, so threads render views in
+    # parallel; the exposure jitter then draws from ``rng`` in camera order,
+    # as the JAX package's loop does.
+    with concurrent.futures.ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        rendered = list(pool.map(render, poses))
+    rotations, translations, observations, visible, images = [], [], [], [], []
+    for (R, center), img in zip(poses, rendered):
+        t = -R @ center
+
+        cam_pts = points @ R.T + t
+        uv = (cam_pts / cam_pts[:, 2:]) @ K.T
+        uv = uv[:, :2]
+        vis = (
+            (cam_pts[:, 2] > 0.2)
+            & (uv[:, 0] > 20)
+            & (uv[:, 0] < width - 20)
+            & (uv[:, 1] > 20)
+            & (uv[:, 1] < height - 20)
+        )
+        # Occlusion: a point is hidden if the camera->point segment crosses
+        # a strictly nearer slab inside its rectangle.
+        for z, x0, x1, y0, y1 in slabs:
+            nearer = points[:, 2] > z + 1e-6
+            denom = points[:, 2] - center[2]
+            s = np.where(np.abs(denom) > 1e-12, (z - center[2]) / denom, -1.0)
+            hit = center[None, :2] + s[:, None] * (points[:, :2] - center[None, :2])
+            blocked = (
+                nearer
+                & (s > 0)
+                & (s < 1)
+                & (hit[:, 0] > x0)
+                & (hit[:, 0] < x1)
+                & (hit[:, 1] > y0)
+                & (hit[:, 1] < y1)
+            )
+            vis &= ~blocked
+
+        if exposure_jitter:
+            img = _exposure_jitter(img, rng, exposure_jitter)
+        images.append(img.astype(np.uint8))
+
+        rotations.append(R)
+        translations.append(t)
+        observations.append(uv)
+        visible.append(vis)
+
+    scene = Scene(
+        points=points,
+        rotations=np.stack(rotations),
+        translations=np.stack(translations),
+        K=K,
+        width=width,
+        height=height,
+        observations=observations,
+        visible=visible,
+    )
+    return scene, images
+
+
+def layered_surface_mesh(
+    bg_z: float = 7.0,
+    bg_half: float = 3.2,
+    slabs: Tuple[Tuple[float, float, float, float, float], ...] = DEFAULT_SLABS,
+):
+    """Triangulated ground-truth mesh of :func:`layered_scene`'s surfaces.
+
+    The background quad spans the RENDER extent (2x ``bg_half``, matching
+    :func:`layered_scene`) so every visible background pixel lies on it."""
+    h = 2.0 * bg_half
+    verts = [
+        [-h, -h, bg_z], [h, -h, bg_z], [h, h, bg_z], [-h, h, bg_z],
+    ]
+    faces = [[0, 1, 2], [0, 2, 3]]
+    for z, x0, x1, y0, y1 in slabs:
+        b = len(verts)
+        verts += [[x0, y0, z], [x1, y0, z], [x1, y1, z], [x0, y1, z]]
+        faces += [[b, b + 1, b + 2], [b, b + 2, b + 3]]
+    return np.asarray(verts, np.float64), np.asarray(faces, np.int64)
+
+
+def planar_surface_mesh(
+    plane_z: float = 6.0, plane_half: float = 2.6, depth_step: float = 0.0
+):
+    """Triangulated ground-truth mesh of :func:`planar_scene`'s surface."""
+    h = plane_half
+    if depth_step == 0.0:
+        verts = np.array(
+            [[-h, -h, plane_z], [h, -h, plane_z], [h, h, plane_z], [-h, h, plane_z]]
+        )
+        faces = np.array([[0, 1, 2], [0, 2, 3]])
+        return verts, faces
+    za, zb = plane_z - depth_step, plane_z + depth_step
+    verts = np.array(
+        [
+            [-h, -h, za], [0, -h, za], [0, h, za], [-h, h, za],
+            [0, -h, zb], [h, -h, zb], [h, h, zb], [0, h, zb],
+        ]
+    )
+    faces = np.array([[0, 1, 2], [0, 2, 3], [4, 5, 6], [4, 6, 7]])
+    return verts, faces
+
+
+#: The card's ``benchmark eth`` scene: :func:`layered_scene` rendered at an
+#: ETH3D DSLR image's size after the ``sift`` caps (6048x4032 -> 1600x1067),
+#: with 640 planted points (about 200,000 refined matches over the 435
+#: exhaustive pairs), 1 px keypoint noise and 0.12 exposure jitter.
+ETH_SCENE = dict(num_cameras=30, width=1600, height=1067, num_points=640,
+                 exposure_jitter=0.12, keypoint_noise_px=1.0)
+
+
+def eth_workload(
+    rng: np.random.Generator,
+    root: str,
+    num_cameras: int = ETH_SCENE["num_cameras"],
+    width: int = ETH_SCENE["width"],
+    height: int = ETH_SCENE["height"],
+    num_points: int = ETH_SCENE["num_points"],
+    exposure_jitter: float = ETH_SCENE["exposure_jitter"],
+    keypoint_noise_px: float = ETH_SCENE["keypoint_noise_px"],
+    method: str = "sift",
+) -> dict:
+    """Write an ETH3D-layout scene for ``benchmark eth`` into ``root``:
+    :func:`layered_scene` (two slabs before a background plane, occlusion
+    edges, per-view exposure jitter) rendered as PNG images, planted
+    keypoints with ``keypoint_noise_px`` of Gaussian noise and matching
+    descriptors (:func:`make_eth3d_dataset`), and
+    :func:`layered_surface_mesh` as the scan (surface-sampled by the
+    evaluation).  Returns {"root", "scene", "num_pairs"}."""
+    scene, images = layered_scene(
+        rng, num_points=num_points, num_cameras=num_cameras, width=width,
+        height=height, exposure_jitter=exposure_jitter,
+    )
+    make_eth3d_dataset(
+        root, scene, rng, method=method, keypoint_noise_px=keypoint_noise_px,
+        rendered_images=images, scan_mesh=layered_surface_mesh(),
+    )
+    return {"root": root, "scene": scene, "num_pairs": num_cameras * (num_cameras - 1) // 2}

@@ -144,3 +144,32 @@ def test_ablation_script_patches_the_kernel_source():
         assert src.count(switch) >= 1
     assert src.count("if (ABLATE_PRODUCTS) wgmma_152") == 1 and src.count("if (ABLATE_STAGE)") == 2
     assert "ABLATE_STORE && c < n_chunks" in src
+
+
+def test_each_cuda_source_builds_into_its_own_hash_keyed_library(tmp_path, monkeypatch):
+    """ops/cuda_build.py keys each library on its own source: editing one
+    source renames its library and leaves the other's name, so its build,
+    as it was; the correlation library keeps the name it had."""
+    import hashlib
+    import os
+    import shutil
+
+    from lfr_tpu_torch.ops import cuda_build
+
+    assert set(cuda_build.LIBRARIES) == {"correlation", "nn_dist"}
+    assert cuda_build.LIBRARIES["correlation"] is cuda_build.SIGNATURES
+    with open(cuda_build.SOURCE, "rb") as fh:
+        digest = hashlib.sha256(fh.read() + " ".join(cuda_build.NVCC_FLAGS).encode()).hexdigest()
+    assert cuda_build.library_path("correlation") == os.path.join(
+        cuda_build.BUILD_DIR, f"libcorrelation-{digest[:16]}.so")
+    before = {name: cuda_build.library_path(name) for name in cuda_build.LIBRARIES}
+    assert len(set(before.values())) == 2
+    csrc = tmp_path / "csrc"
+    shutil.copytree(cuda_build.CSRC, csrc)
+    monkeypatch.setattr(cuda_build, "CSRC", str(csrc))
+    assert {name: cuda_build.library_path(name) for name in before} == before
+    with open(csrc / "nn_dist.cu", "a") as fh:
+        fh.write("\n// edited\n")
+    after = {name: cuda_build.library_path(name) for name in before}
+    assert after["correlation"] == before["correlation"]
+    assert after["nn_dist"] != before["nn_dist"]

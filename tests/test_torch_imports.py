@@ -38,7 +38,9 @@ def test_importing_every_module_loads_no_jax():
     assert "lfr_tpu_torch.ops.interpolate" in names
     for module in ("io.colmap_db", "io.colmap_model", "sfm.cameras", "sfm.geometry",
                    "sfm.verify", "sfm.triangulate", "pipelines.import_features",
-                   "pipelines.triangulation"):
+                   "pipelines.triangulation", "io.jpeg", "ops.nn_dist", "eval.eth3d",
+                   "eval.compare", "pipelines.dataset_tools", "pipelines.benchmark",
+                   "__main__"):
         assert f"lfr_tpu_torch.{module}" in names
     code = (
         "import importlib, sys\n"

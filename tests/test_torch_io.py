@@ -222,9 +222,13 @@ def test_png_encoder_round_trip_and_unsupported_inputs(tmp_path):
         np.testing.assert_array_equal(np.asarray(Image.open(io.BytesIO(data))), image)
         np.testing.assert_array_equal(png.decode_png(data), image)
 
+    # Baseline JPEG decodes as PIL's libjpeg does (tests/test_torch_jpeg.py
+    # holds it against cv2.imread); progressive JPEG still raises.
     jpeg = str(tmp_path / "a.jpg")
     Image.fromarray(synthetic.textured_image(rng, 16, 16)).save(jpeg)
-    with pytest.raises(ValueError, match="JPEG"):
+    np.testing.assert_array_equal(images.load_image_rgb(jpeg), np.asarray(Image.open(jpeg)))
+    Image.fromarray(synthetic.textured_image(rng, 16, 16)).save(jpeg, progressive=True)
+    with pytest.raises(ValueError, match="progressive.*JPEG"):
         images.load_image_rgb(jpeg)
     bad = {}
     buf = io.BytesIO()

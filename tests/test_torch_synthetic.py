@@ -189,3 +189,52 @@ def test_triangulation_workload_is_consistent(tmp_path):
         n_rewired += len(rewired)
         n_matches += p.num_matches
     assert 0.09 < n_rewired / n_matches < 0.11
+
+
+@pytest.mark.parametrize("name, kwargs", [
+    ("layered_scene", dict(num_points=50, num_cameras=3, width=200, height=150,
+                           exposure_jitter=0.1)),
+    ("layered_scene", dict(num_points=30, num_cameras=14, width=120, height=90)),
+    ("planar_scene", dict(num_points=40, num_cameras=3, width=160, height=120,
+                          depth_step=0.3, exposure_jitter=0.1)),
+])
+def test_rendered_scenes_match_jax_package(name, kwargs):
+    """Same seed, same scene and the same rendered pixels (the port samples
+    a slab's texture only where the slab is hit)."""
+    got_scene, got_images = getattr(synthetic, name)(np.random.default_rng(3), **kwargs)
+    want_scene, want_images = getattr(jax_synthetic, name)(np.random.default_rng(3), **kwargs)
+    assert len(got_images) == kwargs["num_cameras"]
+    for g, w in zip(got_images, want_images):
+        assert g.dtype == np.uint8 and g.shape == (kwargs["height"], kwargs["width"], 3)
+        np.testing.assert_array_equal(g, w)
+    for field in ("points", "rotations", "translations", "K"):
+        np.testing.assert_array_equal(getattr(got_scene, field), getattr(want_scene, field))
+    for attr in ("observations", "visible"):
+        for g, w in zip(getattr(got_scene, attr), getattr(want_scene, attr)):
+            np.testing.assert_array_equal(g, w)
+
+
+def test_surface_meshes_match_jax_package():
+    for name, kwargs in (("layered_surface_mesh", {}), ("planar_surface_mesh", {}),
+                         ("planar_surface_mesh", dict(depth_step=0.3))):
+        for g, w in zip(getattr(synthetic, name)(**kwargs), getattr(jax_synthetic, name)(**kwargs)):
+            np.testing.assert_array_equal(g, w)
+
+
+def test_eth_workload_writes_the_benchmark_layout(tmp_path):
+    """A small eth_workload: the ETH3D layout with a mesh scan, and the
+    same scene as make_eth3d_dataset of layered_scene with that seed."""
+    root = str(tmp_path / "scene")
+    out = synthetic.eth_workload(np.random.default_rng(9), root, num_cameras=3, width=160,
+                                 height=120, num_points=24)
+    assert out["num_pairs"] == 3
+    for rel in ("database.db", "match-list.txt", "dslr_calibration_undistorted/images.txt",
+                "dslr_scan_eval/scan.ply", "dslr_scan_eval/scan_alignment.mlp",
+                "images/im0002.png", "images/im0002.png.sift"):
+        assert pathlib.Path(root, rel).exists(), rel
+    from lfr_tpu_torch.io import colmap_model
+
+    xyz, faces = colmap_model.read_ply_mesh(str(pathlib.Path(root, "dslr_scan_eval", "scan.ply")))
+    want_xyz, want_faces = synthetic.layered_surface_mesh()
+    np.testing.assert_allclose(xyz, want_xyz, rtol=1e-6)
+    np.testing.assert_array_equal(faces, want_faces)
