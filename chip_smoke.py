@@ -101,9 +101,32 @@ Phases, each printing its seconds; any failure ends the run non-zero:
    of a bin's depth limit; (c) ref's accuracy at 1 cm at least
    ETH_ACCURACY_MIN, which raw and the ref PLY shifted by CONTROL_SHIFT_M
    along z must fail.
-10. variants: scripts/bench_corr_variants_torch.py's run (asym, nonorm and
+10. extract: the user's path from images to the ETH3D numbers with the
+   port's own features, on a copy of benchmark_eth's scene without its
+   planted ``.sift`` files (the scan cache kept), with the library's TF32
+   defaults (the extractors must compute in f32 whatever they say).  SIFT
+   (lfr_tpu_torch.pipelines.extract_features, torch ops, no kernel of ours)
+   on all 30 views, with images/s, keypoints per view and host ms per view
+   by span; then the copy cut to its first EXTRACT_CAMERAS cameras,
+   ``dataset create-db-eth`` and ``match-list``, and run_eth ref and raw
+   (corr_sym, corr_asym and nn_dist launch: path "extract_eth").  One
+   ``{"extract": ...}`` line.  This run's evaluation is checked as
+   benchmark_eth's is: nn_dist at this path's shapes (the points
+   triangulated from the extracted features; the samples visible from
+   EXTRACT_CAMERAS cameras) against its plain version, and the fractions
+   against the host cKDTree, in one ``{"extract_evaluation": ...}`` line.
+   Then a traced extraction on STAGE_VIEWS views (busy share, launches and
+   the kernel time of SIFT's device stages by profiler range), SIFT, DoH
+   and SURF on one view card against CPU (MATCH_PX, DESC_ATOL) beside two
+   CPU controls (PERTURB, and the other CPU convolution route), and the
+   fixture JPEGs' host cost: one ``{"extract_check": ...}`` line.  Gates:
+   every camera registered in ref and raw, each of the three kernels
+   launched, nn_dist and the evaluation as above, SIFT's and DoH's
+   card-vs-CPU shares at least the lesser control's less CONTROL_MARGIN,
+   and SURF's at least SURF_MIN_SHARE with equal keypoint counts.
+11. variants: scripts/bench_corr_variants_torch.py's run (asym, nonorm and
    matmul kernels and two PyTorch calls at B=4096).
-11. the kernel list as one JSON line, the card's name and power limit, and
+12. the kernel list as one JSON line, the card's name and power limit, and
    the result line ``{"ok": true, "device": {...}}`` last.
 
 Each path's kernel launches are counted from 0 just before it runs and read
@@ -256,6 +279,46 @@ CONTROL_SHIFT_M = 0.02
 #: of its bin's depth limit in some view.
 VIS_SAMPLES = 500_000
 VIS_RTOL = 1e-6
+
+#: The extract phase: SIFT on every view of the benchmark_eth scene, then
+#: run_eth from the extracted features on its first EXTRACT_CAMERAS cameras
+#: (66 pairs; a cut that keeps the script near 480 s).
+EXTRACT_CAMERAS = 12
+
+#: Card against CPU for each extractor on one full-size view: the share of
+#: keypoints with one of the other run's within MATCH_PX pixels, and of
+#: those pairs whose descriptors agree within DESC_ATOL in every component
+#: (about 2 levels of the x512 uint8 code).
+MATCH_PX = 1e-2
+DESC_ATOL = 4e-3
+
+#: The controls that set each bound, both on the CPU: (1) the view against
+#: the view with each pixel scaled by 1 + PERTURB * N(0, 1) (a change of an
+#: ulp or two); (2) the view with oneDNN's convolution against the view with
+#: PyTorch's own (the blur rounded in another order, as the card's cuDNN
+#: rounds it: on tests/fixtures' DSC_0001 the DoH keypoints of the two CPU
+#: routes agree at 93%, against 96% for the perturbation).  The card may fall
+#: CONTROL_MARGIN below the lesser of the two (SIFT and DoH; SURF has its
+#: own gate, SURF_MIN_SHARE).  The card read 100% / 100% (SIFT), 99.8% /
+#: 99.97% (DoH) and 100% / 100% (SURF) of keypoints / descriptors against
+#: bounds of 97.9 / 97.7 and 94.5 / 97.8% (NVIDIA H100 80GB HBM3, 700 W;
+#: PERF.md).
+PERTURB = 2e-7
+CONTROL_MARGIN = 0.02
+
+#: SURF card against CPU: equal keypoint counts, and at least
+#: SURF_MIN_SHARE of keypoints matched and of descriptors agreeing.  Its
+#: response maps are the same on any device (the integral image in one
+#: fixed order of f32 additions, box sums and the determinant one rounded
+#: operation at a time) and its non-max suppression is the same host numpy,
+#: so the keypoints are the same set; only atan2, sin and cos may round
+#: differently on the card, which can move a Haar sample that snaps to an
+#: integer pixel in a few keypoints.  The perturbation control (80.5% /
+#: 55.1% less the margin) would let half the descriptors go wrong.
+SURF_MIN_SHARE = 0.99
+
+#: Views of the traced extraction (SIFT's device stages by profiler range).
+STAGE_VIEWS = 5
 
 #: Steps of the failed-Cholesky check.
 LM_CHECK_ITER = 4
@@ -1190,14 +1253,14 @@ def _timed_once(fn):
     return start.elapsed_time(stop), out
 
 
-def nn_full_size(nn_dist, rec, scan, visible):
+def nn_full_size(nn_dist, rec, scan, visible, library=True):
     """The kernel at the scene's two sizes (accuracy: the reconstruction
     against the scan; completeness: the visible samples against the
     reconstruction), held against its plain version on the same inputs
     (NN_ULPS; counts within each tolerance equal except queries within
-    NN_ULPS of tol^2), with its time, the plain version's, its bound and
-    torch.cdist's on the full inputs.  Returns the numbers and the kernel's
-    squared distances of each direction."""
+    NN_ULPS of tol^2), with its time, the plain version's, its bound and,
+    if ``library``, torch.cdist's on the full inputs.  Returns the numbers
+    and the kernel's squared distances of each direction."""
     import torch
 
     from lfr_tpu_torch.config import ETH3D_TOLERANCES
@@ -1220,8 +1283,10 @@ def nn_full_size(nn_dist, rec, scan, visible):
         got = nn_dist.nn_min_sq(q, c).cpu().numpy()
         plain_ms, want = _timed_once(lambda: nn_dist.min_sq_reference(q, c))
         want = want.cpu().numpy()
-        _library_min(q[:8], c[:4096])  # warm-up
-        library_ms, _ = _timed_once(lambda: _library_min(q, c))
+        library_ms = None
+        if library:
+            _library_min(q[:8], c[:4096])  # warm-up
+            library_ms, _ = _timed_once(lambda: _library_min(q, c))
         ulps = float(_ulps(got, want).max())
         differ = [abs(int((got <= t2).sum()) - int((want <= t2).sum())) for t2 in tol2]
         ties = [_near_tol2(want, t2) for t2 in tol2]
@@ -1249,6 +1314,47 @@ def _straddle_margin(scale, t):
     still fall on the other side of t on the card (STRADDLE_ULPS)."""
     return float(np.sqrt(3.0) * np.spacing(np.float32(scale))
                  + STRADDLE_ULPS * np.spacing(np.float32(t)))
+
+
+def _kdtree_check(label, card_ev, d2, rec, scan, visible):
+    """The card's evaluation of ``rec`` (``card_ev``, from run_eth) against
+    the host cKDTree route (f64): its fractions must be the nn_dist
+    kernel's counts (``d2``: the kernel's squared distances of each
+    direction), and a query may lie on the other side of a tolerance from
+    the CPU's only if its f64 distance is within _straddle_margin of it."""
+    from scipy.spatial import cKDTree
+
+    from lfr_tpu_torch.config import ETH3D_TOLERANCES
+
+    tols = list(ETH3D_TOLERANCES)
+    t0 = time.perf_counter()
+    d64 = {"accuracy": cKDTree(scan).query(rec, k=1, workers=-1)[0],
+           "completeness": cKDTree(rec).query(visible, k=1, workers=-1)[0]}
+    cpu_s = time.perf_counter() - t0
+    tol2 = np.square(np.asarray(tols, np.float32))
+    check = {"cpu_kdtree_s": cpu_s, "scan_samples": int(scan.shape[0]),
+             "visible_samples": int(visible.shape[0]), "points": int(rec.shape[0])}
+    for key, name, queries, corpus in (("accuracies", "accuracy", rec, scan),
+                                       ("completenesses", "completeness", visible, rec)):
+        n = queries.shape[0]
+        card_counts = [int((d2[name] <= t2).sum()) for t2 in tol2]
+        if card_ev[key] != [k / n for k in card_counts]:
+            raise RuntimeError(f"{label}: {key} {card_ev[key]} are not the kernel's counts")
+        scale = max(float(np.abs(queries).max()), float(np.abs(corpus).max()))
+        sides, near, far = [], [], []
+        for t2, t in zip(tol2, tols):
+            flip = (d2[name] <= t2) != (d64[name] <= t)
+            close = np.abs(d64[name] - t) <= _straddle_margin(scale, t)
+            sides.append(int(flip.sum()))
+            near.append(int(close.sum()))
+            far.append(int((flip & ~close).sum()))
+        check[key] = {"card": card_ev[key], "cpu": [float((d64[name] <= t).mean()) for t in tols],
+                      "other_side": sides, "near_tolerance": near,
+                      "margins_m": [_straddle_margin(scale, t) for t in tols]}
+        if any(far):
+            raise RuntimeError(f"{label}: {key}: {far} queries on the other side of a "
+                               f"tolerance from the CPU's, beyond the margin")
+    return check
 
 
 def _depth_margins(points, model, idx):
@@ -1291,7 +1397,6 @@ def benchmark_eth_phase(nn_dist, tmp):
     their controls.  Returns (the path's launch counts, the nn_dist kernel
     row)."""
     import torch
-    from scipy.spatial import cKDTree
 
     from lfr_tpu_torch.config import ETH3D_TOLERANCES
     from lfr_tpu_torch.eval import eth3d
@@ -1350,36 +1455,9 @@ def benchmark_eth_phase(nn_dist, tmp):
     numbers, d2 = nn_full_size(nn_dist, rec, scan, visible)
     print(json.dumps({"nn_dist_full_size": numbers}), flush=True)
 
-    # (a) The card's evaluation against the host cKDTree route (f64): a
-    # query may change sides of a tolerance only within _straddle_margin.
-    t0 = time.perf_counter()
-    d64 = {"accuracy": cKDTree(scan).query(rec, k=1, workers=-1)[0],
-           "completeness": cKDTree(rec).query(visible, k=1, workers=-1)[0]}
-    cpu_s = time.perf_counter() - t0
-    tol2 = np.square(np.asarray(tols, np.float32))
+    # (a) The card's evaluation against the host cKDTree route (f64).
     card_ev = results["ref"]["evaluation"]
-    check = {"cpu_kdtree_s": cpu_s, "scan_samples": int(scan.shape[0]),
-             "visible_samples": int(visible.shape[0]), "points": int(rec.shape[0])}
-    for key, name, queries, corpus in (("accuracies", "accuracy", rec, scan),
-                                       ("completenesses", "completeness", visible, rec)):
-        n = queries.shape[0]
-        card_counts = [int((d2[name] <= t2).sum()) for t2 in tol2]
-        if card_ev[key] != [k / n for k in card_counts]:
-            raise RuntimeError(f"benchmark_eth: {key} {card_ev[key]} are not the kernel's counts")
-        scale = max(float(np.abs(queries).max()), float(np.abs(corpus).max()))
-        sides, near, far = [], [], []
-        for t2, t in zip(tol2, tols):
-            flip = (d2[name] <= t2) != (d64[name] <= t)
-            close = np.abs(d64[name] - t) <= _straddle_margin(scale, t)
-            sides.append(int(flip.sum()))
-            near.append(int(close.sum()))
-            far.append(int((flip & ~close).sum()))
-        check[key] = {"card": card_ev[key], "cpu": [float((d64[name] <= t).mean()) for t in tols],
-                      "other_side": sides, "near_tolerance": near,
-                      "margins_m": [_straddle_margin(scale, t) for t in tols]}
-        if any(far):
-            raise RuntimeError(f"benchmark_eth: {key}: {far} queries on the other side of a "
-                               f"tolerance from the CPU's, beyond the margin")
+    check = _kdtree_check("benchmark_eth", card_ev, d2, rec, scan, visible)
 
     # (b) The visibility mask on the card against the CPU, reduced scan.
     step = max(1, scan.shape[0] // VIS_SAMPLES)
@@ -1422,6 +1500,220 @@ def benchmark_eth_phase(nn_dist, tmp):
         "max_abs_err": max(d["max_abs_err"] for d in dirs),
     }
     return counts, row
+
+
+def _traced_extract(image_dir):
+    """extract_directory under torch.profiler: wall seconds, summed kernel
+    time, the device's busy share, launches per view, the kernel ms per
+    view of each of SIFT's device stages (the kernels launched inside its
+    profiler ranges, sift.STAGES) and the costliest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lfr_tpu_torch.ops.sift import STAGES
+    from lfr_tpu_torch.pipelines.extract_features import extract_directory
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        n = extract_directory(image_dir, "sift", verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    stages = dict.fromkeys(STAGES, 0.0)
+    by_name = {}
+    for evt in events:
+        if evt.device_type != cuda:
+            if evt.name in stages:
+                stages[evt.name] += evt.device_time_total / 1e3
+        elif not evt.is_user_annotation and evt.name not in stages:
+            count, ms = by_name.get(evt.name, (0, 0.0))
+            by_name[evt.name] = count + 1, ms + evt.time_range.elapsed_us() / 1e3
+    busy_ms = sum(ms for _, ms in by_name.values())
+    if not 0.0 < sum(stages.values()) <= busy_ms * (1 + 1e-6):
+        raise RuntimeError(f"extract: stage kernel ms {stages} against {busy_ms} ms in all")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    return {"views": n, "wall_s": wall, "kernel_ms": busy_ms,
+            "device_busy_share": busy_ms / (wall * 1e3),
+            "stage_kernel_ms_per_view": {k: v / n for k, v in stages.items()},
+            "launches_per_view": sum(c for k, (c, _) in by_name.items()
+                                     if "memcpy" not in k.lower()) / n,
+            "top_kernels": [{"name": k[:80], "count": c, "ms": ms} for k, (c, ms) in top[:8]]}
+
+
+def _card_vs_cpu(view):
+    """SIFT, DoH and SURF on one full-size gray view ([0, 1] f64), card
+    against CPU, beside the two CPU controls that set the bounds of SIFT
+    and DoH; SURF is held to SURF_MIN_SHARE and equal keypoint counts."""
+    import torch
+
+    from lfr_tpu_torch.eval.compare import feature_agreement
+    from lfr_tpu_torch.ops import doh, sift, surf
+
+    rng = np.random.default_rng(ETH_SEED)
+    perturbed = view * (1.0 + PERTURB * rng.standard_normal(view.shape))
+    agree = lambda a, b: feature_agreement(a, b, MATCH_PX, DESC_ATOL)  # noqa: E731
+    out, failed = {}, []
+    for name, fn in (("sift", sift.extract_sift), ("doh", doh.extract_doh),
+                     ("surf", surf.extract_surf)):
+        fn(view, device="cuda")  # warm-up: cuDNN handles and heuristics
+        t0 = time.perf_counter()
+        card = fn(view, device="cuda")
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = fn(view, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        with torch.backends.mkldnn.flags(enabled=False):
+            cpu_conv = fn(view, device="cpu")
+        controls = {"perturbed": agree(cpu, fn(perturbed, device="cpu")),
+                    "conv_route": agree(cpu, cpu_conv)}
+        got = agree(cpu, card)
+        if name == "surf":
+            bounds = dict.fromkeys(("matched", "descriptors"), SURF_MIN_SHARE)
+        else:
+            bounds = {k: min(c[k] for c in controls.values()) - CONTROL_MARGIN
+                      for k in ("matched", "descriptors")}
+        out[name] = {"card_s": card_s, "cpu_s": cpu_s, "card_vs_cpu": got,
+                     "controls": controls, "bounds": bounds}
+        if any(got[k] < bounds[k] for k in bounds) or (
+                name == "surf" and got["keypoints"][0] != got["keypoints"][1]):
+            failed.append(name)
+    return out, failed
+
+
+def extract_phase(nn_dist, scene_root, tmp):
+    """SIFT on the benchmark_eth scene's 30 views with the host / device
+    split, run_eth from the extracted features on its first EXTRACT_CAMERAS
+    cameras with its evaluation checked (nn_dist against its plain version
+    at this run's shapes, the fractions against the cKDTree), card vs CPU
+    for each extractor, and the fixture JPEGs' host cost, with the
+    library's TF32 defaults.  Returns the path's launch counts (extraction
+    and run_eth) and nn_dist's largest |kernel - plain|."""
+    import torch
+
+    # The library's TF32 defaults, as a user of `extract` has them: the
+    # extractors must compute in f32 whatever the flags say.
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    try:
+        return _extract_phase(nn_dist, scene_root, tmp)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+
+
+def _extract_phase(nn_dist, scene_root, tmp):
+    import torch
+
+    from lfr_tpu_torch.config import ETH3D_TOLERANCES
+    from lfr_tpu_torch.eval import eth3d
+    from lfr_tpu_torch.eval.compare import restrict_to_images
+    from lfr_tpu_torch.io import colmap_model
+    from lfr_tpu_torch.io.features import load_features
+    from lfr_tpu_torch.io.images import load_image_rgb
+    from lfr_tpu_torch.pipelines import dataset_tools
+    from lfr_tpu_torch.pipelines.benchmark import run_eth
+    from lfr_tpu_torch.pipelines.extract_features import extract_directory
+
+    # The scene as a user holds it: images, calibration and scan (with the
+    # evaluation's scan cache), no features, no database.
+    root = os.path.join(tmp, "eth_extract")
+    images = os.path.join(root, "images")
+    gt_dir = os.path.join(root, "dslr_calibration_undistorted")
+    for sub in ("dslr_calibration_undistorted", "dslr_scan_eval"):
+        shutil.copytree(os.path.join(scene_root, sub), os.path.join(root, sub))
+    shutil.copytree(os.path.join(scene_root, "images"), images,
+                    ignore=shutil.ignore_patterns("*.sift"))
+    names = sorted(os.listdir(images))
+
+    reset_launches()
+    timing = {}
+    t0 = time.perf_counter()
+    n_views = extract_directory(images, "sift", verbose=False, timing=timing)
+    torch.cuda.synchronize()
+    extract_s = time.perf_counter() - t0
+    counts = [load_features(os.path.join(images, n), "sift").num_features for n in names]
+
+    # run_eth on the first EXTRACT_CAMERAS cameras, bootstrapped as a user
+    # would: create-db-eth and match-list from the cut calibration.
+    keep = set(names[:EXTRACT_CAMERAS])
+    for name in names[EXTRACT_CAMERAS:]:
+        os.remove(os.path.join(images, name))
+        os.remove(os.path.join(images, name + ".sift"))
+    colmap_model.write_model(gt_dir, restrict_to_images(colmap_model.read_model(gt_dir), keep))
+    dataset_tools.main(["create-db-eth", "--dataset_path", root])
+    dataset_tools.main(["match-list", "--dataset_path", root])
+    t0 = time.perf_counter()
+    results = run_eth(root, "sift", output_path=os.path.join(tmp, "extract_out"),
+                      checkpoint=os.path.join(HERE, "weights", "panet_holdout.msgpack"),
+                      verbose=False)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = read_launches()
+
+    tols = list(ETH3D_TOLERANCES)
+    at = [tols.index(0.01), tols.index(0.02)]
+    spans = {s["span"]: s["ms"] / 1e3 for s in results["timing"]}
+    line = {
+        "views": n_views, "view_hw": list(load_image_rgb(os.path.join(images, names[0])).shape[:2]),
+        "extract_s": extract_s, "images_per_s": n_views / extract_s,
+        "keypoints_per_image": {"min": min(counts), "median": statistics.median(counts),
+                                "max": max(counts)},
+        "host_ms_per_image": {k: v * 1e3 / n_views for k, v in timing.items()},
+        "run_eth": {"cameras": EXTRACT_CAMERAS, "seconds": run_s, "spans_s": spans,
+                    "refined_matches": results["match_graph_breakdown"]["n_refined_matches"]},
+        "launches": launches,
+    }
+    for tag in ("ref", "raw"):
+        tri, ev = results[tag]["triangulation"], results[tag]["evaluation"]
+        line["run_eth"][tag] = {
+            "registered": tri["num_reg_images"], "points": tri["num_sparse_points"],
+            "mean_reproj_error": tri["mean_reproj_error"],
+            "accuracy_1_2cm": [ev["accuracies"][i] for i in at],
+            "completeness_1_2cm": [ev["completenesses"][i] for i in at]}
+    print(json.dumps({"extract": line}), flush=True)
+    for tag in ("ref", "raw"):
+        if line["run_eth"][tag]["registered"] != EXTRACT_CAMERAS:
+            raise RuntimeError(f"extract: run_eth {tag} registered "
+                               f"{line['run_eth'][tag]['registered']} of {EXTRACT_CAMERAS}")
+    if min(launches[k] for k in ("corr_sym", "corr_asym", "nn_dist")) == 0:
+        raise RuntimeError(f"extract: kernel launches {launches}")
+
+    # This path's evaluation: nn_dist at its own shapes (the points from the
+    # extracted features, the samples visible from EXTRACT_CAMERAS cameras)
+    # against its plain version, and the fractions against the cKDTree.
+    scan_file = os.path.join(root, "dslr_scan_eval", "scan_alignment.mlp")
+    scan, _ = eth3d._load_scan_cached(scan_file, eth3d.SURFACE_SPACING)
+    visible = eth3d._visible_scan_cached(scan, scan_file, gt_dir, 1)
+    rec = colmap_model.read_ply_xyz(os.path.join(root, "sparse-sift-ref.ply"))
+    numbers, d2 = nn_full_size(nn_dist, rec, scan, visible, library=False)
+    evaluation = _kdtree_check("extract", results["ref"]["evaluation"], d2, rec, scan, visible)
+    print(json.dumps({"extract_evaluation": {"nn_dist": numbers, "vs_kdtree": evaluation}}),
+          flush=True)
+    nn_err = max(numbers[k]["max_abs_err"] for k in ("accuracy", "completeness"))
+    del scan, visible, d2
+
+    # Where the device time goes, and the card against the CPU.
+    traced_dir = os.path.join(tmp, "extract_traced")
+    os.makedirs(traced_dir)
+    for n in names[:STAGE_VIEWS]:
+        shutil.copy(os.path.join(scene_root, "images", n), traced_dir)
+    traced = _traced_extract(traced_dir)
+    view = load_image_rgb(os.path.join(traced_dir, names[0])) @ np.array(
+        [0.299, 0.587, 0.114]) / 255.0
+    agreement, failed = _card_vs_cpu(view)
+    jpeg_dir = os.path.join(tmp, "extract_jpeg")
+    shutil.copytree(os.path.join(HERE, "tests", "fixtures", "eth3d_mini", "relief_mini", "images"),
+                    jpeg_dir)
+    jpeg_timing = {}
+    n_jpeg = extract_directory(jpeg_dir, "sift", verbose=False, timing=jpeg_timing)
+    check = {"traced": traced, "card_vs_cpu": agreement,
+             "fixture_jpegs": {"views": n_jpeg,
+                               "host_ms_per_image": {k: v * 1e3 / n_jpeg
+                                                     for k, v in jpeg_timing.items()}}}
+    print(json.dumps({"extract_check": check}), flush=True)
+    if failed:
+        raise RuntimeError(f"extract: card vs CPU below its bound: {failed}")
+    return launches, nn_err
 
 
 def variants_phase():
@@ -1509,6 +1801,11 @@ def main() -> int:
         nn_row["max_abs_err"] = max(nn_err, nn_row["max_abs_err"])
         rows.append(nn_row)
         phase("benchmark_eth", t0)
+
+        t0 = time.perf_counter()
+        paths["extract_eth"], nn_err = extract_phase(nn_dist, os.path.join(tmp, "eth_scene"), tmp)
+        nn_row["max_abs_err"] = max(nn_err, nn_row["max_abs_err"])
+        phase("extract", t0)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

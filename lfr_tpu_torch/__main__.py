@@ -1,8 +1,8 @@
 """Unified CLI: ``python -m lfr_tpu_torch <command> ...``.
 
 Every stage the port has is one subcommand of one program, sharing the
-method registry (lfr_tpu_torch/config.py).  Feature extraction and
-incremental SfM come with their slices of the port.
+method registry (lfr_tpu_torch/config.py).  Incremental SfM (``reconstruct``)
+comes with its slice of the port.
 """
 
 from __future__ import annotations
@@ -11,6 +11,10 @@ import importlib
 import sys
 
 COMMANDS = {
+    "extract": (
+        "lfr_tpu_torch.pipelines.extract_features",
+        "feature extraction (sift, surf, doh) -> per-image npz files",
+    ),
     "match": (
         "lfr_tpu_torch.pipelines.match_graph",
         "match graph + two-view CNN refinement -> MatchingFile",

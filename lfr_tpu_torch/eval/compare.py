@@ -5,6 +5,9 @@ Restrict both models to the images registered in both, then report the
 analyzer statistics side by side:
 
     python -m lfr_tpu_torch.eval.compare --raw_model RAW --ref_model REF
+
+:func:`feature_agreement` compares two extractions of one image (two
+devices, two packages, or a run against a control).
 """
 
 from __future__ import annotations
@@ -62,6 +65,28 @@ def compare_reconstructions(
     raw_common = restrict_to_images(raw_model, common)
     ref_common = restrict_to_images(ref_model, common)
     return analyze_model(raw_common), analyze_model(ref_common)
+
+
+def feature_agreement(a, b, px: float = 1e-2, desc_atol: float = 4e-3) -> Dict:
+    """How two feature sets (keypoints (K, >=2), scores, descriptors) of one
+    image agree: ``matched``, the share of ``a``'s keypoints with one of
+    ``b``'s within ``px`` pixels (nearest in x, y), over the larger count;
+    ``descriptors``, the share of those matched pairs whose descriptors
+    differ by at most ``desc_atol`` in every component."""
+    from scipy.spatial import cKDTree
+
+    ka, da = np.asarray(a[0]), np.asarray(a[2])
+    kb, db = np.asarray(b[0]), np.asarray(b[2])
+    out = {"keypoints": [int(len(ka)), int(len(kb))], "matched": 0.0, "descriptors": 0.0}
+    if not len(ka) or not len(kb):
+        return out
+    dist, idx = cKDTree(kb[:, :2]).query(ka[:, :2])
+    m = dist <= px
+    out["matched"] = float(m.sum() / max(len(ka), len(kb)))
+    if m.any():
+        diff = np.abs(da[m].astype(np.float64) - db[idx[m]]).max(axis=1)
+        out["descriptors"] = float((diff <= desc_atol).mean())
+    return out
 
 
 def main(argv=None) -> None:

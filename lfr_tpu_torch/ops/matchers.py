@@ -30,14 +30,16 @@ _PAD_SIM = -2.0
 
 @contextlib.contextmanager
 def strict_f32():
-    """Run f32 matrix products without TF32 inside the block, whatever the
-    caller's setting; the setting is restored on exit."""
-    saved = torch.get_float32_matmul_precision()
+    """Run f32 matrix products and cuDNN convolutions without TF32 inside
+    the block, whatever the caller's settings; they are restored on exit."""
+    saved = torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32
     torch.set_float32_matmul_precision("highest")
+    torch.backends.cudnn.allow_tf32 = False
     try:
         yield
     finally:
-        torch.set_float32_matmul_precision(saved)
+        torch.set_float32_matmul_precision(saved[0])
+        torch.backends.cudnn.allow_tf32 = saved[1]
 
 
 def _pad_descriptors(d: np.ndarray, dim_bucket: int = 8) -> Tuple[np.ndarray, int]:

@@ -8,6 +8,10 @@ for a sample at window coordinate ``rel``.  The window's origin is clamped
 into the image (lfr_tpu/ops/patches.py:134-136); a tap that then falls
 outside the window gets no weight, exactly as in the JAX code.  Centers are
 in the padded image's coordinates and outputs are f32.
+
+:func:`sample_bilinear` is the plain gather form of the JAX package's
+``sample_bilinear`` (reflection at the edge pixels' centers, four taps),
+which SIFT's gradient sampling uses.
 """
 
 from __future__ import annotations
@@ -22,6 +26,40 @@ from ..config import PATCH_SIZE
 #: half-extent used anywhere (fine pass: 16.5*2 + 16 grid + 1 ~ 50 px on the
 #: 2x image).
 REFLECT_MARGIN = 96
+
+
+def reflect_coord(x: torch.Tensor, size: int) -> torch.Tensor:
+    """Reflect a continuous pixel coordinate into [0, size-1], the period
+    2*(size-1) of align_corners=True reflection (lfr_tpu/ops/patches.py:21).
+    ``torch.remainder`` takes the divisor's sign, as ``jnp.mod``."""
+    span = float(max(size - 1, 1))
+    x = torch.remainder(x, 2.0 * span)
+    return torch.where(x > span, 2.0 * span - x, x)
+
+
+def sample_bilinear(image: torch.Tensor, ij: torch.Tensor) -> torch.Tensor:
+    """Bilinearly sample ``image`` (H, W, C) at continuous (row, col)
+    positions ``ij`` (..., 2) with reflection at the border
+    (lfr_tpu/ops/patches.py:33).  Returns (..., C)."""
+    h, w = image.shape[0], image.shape[1]
+    i = reflect_coord(ij[..., 0], h)
+    j = reflect_coord(ij[..., 1], w)
+    i0f = torch.floor(i)
+    j0f = torch.floor(j)
+    di = (i - i0f)[..., None]
+    dj = (j - j0f)[..., None]
+    i0 = i0f.long()
+    j0 = j0f.long()
+    i1 = (i0 + 1).clamp(0, h - 1)
+    j1 = (j0 + 1).clamp(0, w - 1)
+    i0 = i0.clamp(0, h - 1)
+    j0 = j0.clamp(0, w - 1)
+    return (
+        image[i0, j0] * (1 - di) * (1 - dj)
+        + image[i0, j1] * (1 - di) * dj
+        + image[i1, j0] * di * (1 - dj)
+        + image[i1, j1] * di * dj
+    )
 
 
 def _hat_weights(

@@ -4,12 +4,15 @@ against lfr_tpu's ``run_eth`` on the CPU.
 - Real images: copies of the ``eth3d_mini/relief_mini`` fixture (JPEG,
   nested image directory, a two-mesh ``.mlp`` scan), bootstrapped by each
   package's dataset tools, with ``.sift`` files written by lfr_tpu's
-  extractor into both (the port has no extractor yet), run with
-  ``skip_refinement``.  Registered images must be equal and point counts
-  within POINT_COUNT_RTOL: the two packages verify with different RANSAC
-  samplers (ROADMAP Queue 3), and on this scene they differ by 1 point of
-  51.  Each package's ``evaluate_ply`` of the other's PLY must equal the
-  other's own evaluation.
+  extractor into both, run with ``skip_refinement``.  Registered images
+  must be equal and point counts within POINT_COUNT_RTOL: the two packages
+  verify with different RANSAC samplers (ROADMAP Queue 3), and on this
+  scene they differ by 1 point of 51.  Each package's ``evaluate_ply`` of
+  the other's PLY must equal the other's own evaluation.
+- The whole chain of the port: its own extractor writes the ``.sift``
+  files and its ``benchmark eth`` runs with ``skip_refinement``, against
+  the JAX chain on JAX's features: registered images equal, point counts
+  within POINT_COUNT_RTOL.
 - Refinement: a 3-camera ``layered_scene`` dataset with PANet weights
   ``weights/panet_cpu.msgpack``, ref and raw.  The refinement runs in bf16
   in both packages, which round at other places, so the refined models may
@@ -34,6 +37,7 @@ from lfr_tpu.pipelines import dataset_tools as jax_tools
 from lfr_tpu.pipelines import extract_features
 from lfr_tpu_torch.eval import eth3d
 from lfr_tpu_torch.pipelines import benchmark, dataset_tools
+from lfr_tpu_torch.pipelines import extract_features as port_extract
 from lfr_tpu_torch.utils import synthetic
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -73,22 +77,36 @@ def _close_counts(got, want):
     assert abs(got - want) <= POINT_COUNT_RTOL * want, (got, want)
 
 
-def test_real_images_skip_refinement_match_jax(tmp_path):
-    roots = {pkg: str(tmp_path / pkg / "relief_mini") for pkg in ("jax", "port")}
-    for pkg, tools in (("jax", jax_tools), ("port", dataset_tools)):
-        shutil.copytree(FIXTURE, roots[pkg])
-        tools.main(["create-db-eth", "--dataset_path", roots[pkg]])
-        tools.main(["match-list", "--dataset_path", roots[pkg]])
-    image_dir = os.path.join("images", "dslr_images_undistorted")
+def _relief_copy(root, tools):
+    shutil.copytree(FIXTURE, root)
+    tools.main(["create-db-eth", "--dataset_path", root])
+    tools.main(["match-list", "--dataset_path", root])
+
+
+@pytest.fixture(scope="module")
+def jax_relief(tmp_path_factory):
+    """The JAX chain on relief_mini: lfr_tpu's extractor and ``run_eth``
+    with ``skip_refinement``.  Returns (dataset root, results)."""
+    tmp = tmp_path_factory.mktemp("jax_relief")
+    root = str(tmp / "jax" / "relief_mini")
+    _relief_copy(root, jax_tools)
     assert extract_features.extract_directory(
-        os.path.join(roots["jax"], "images"), "sift", max_features=1500, verbose=False) == 3
+        os.path.join(root, "images"), "sift", max_features=1500, verbose=False) == 3
+    results = jax_benchmark.run_eth(root, "sift", output_path=str(tmp / "jax_out"),
+                                    skip_refinement=True, verbose=False)
+    return root, results
+
+
+def test_real_images_skip_refinement_match_jax(tmp_path, jax_relief):
+    roots = {"jax": jax_relief[0], "port": str(tmp_path / "port" / "relief_mini")}
+    _relief_copy(roots["port"], dataset_tools)
+    image_dir = os.path.join("images", "dslr_images_undistorted")
     for name in os.listdir(os.path.join(roots["jax"], image_dir)):
         if name.endswith(".sift"):
             shutil.copy(os.path.join(roots["jax"], image_dir, name),
                         os.path.join(roots["port"], image_dir, name))
     results = {
-        "jax": jax_benchmark.run_eth(roots["jax"], "sift", output_path=str(tmp_path / "jax_out"),
-                                     skip_refinement=True, verbose=False),
+        "jax": jax_relief[1],
         "port": benchmark.run_eth(roots["port"], "sift", output_path=str(tmp_path / "port_out"),
                                   skip_refinement=True, verbose=False, device="cpu"),
     }
@@ -104,6 +122,18 @@ def test_real_images_skip_refinement_match_jax(tmp_path):
                      "evaluation_raw/visibility", "evaluation_raw/nn", "evaluation_raw"]
     with open(tmp_path / "port_out" / "sift-relief_mini-raw.txt") as fh:
         assert fh.read() == eth3d.format_results(ev)
+
+
+def test_port_extractor_then_benchmark_matches_jax_chain(tmp_path, jax_relief):
+    root = str(tmp_path / "port" / "relief_mini")
+    _relief_copy(root, dataset_tools)
+    assert port_extract.extract_directory(os.path.join(root, "images"), "sift", max_features=1500,
+                                          verbose=False, device="cpu") == 3
+    got = benchmark.run_eth(root, "sift", output_path=str(tmp_path / "port_out"),
+                            skip_refinement=True, verbose=False, device="cpu")
+    got, want = got["raw"]["triangulation"], jax_relief[1]["raw"]["triangulation"]
+    assert got["num_reg_images"] == want["num_reg_images"] == 3
+    _close_counts(got["num_sparse_points"], want["num_sparse_points"])
 
 
 def test_refinement_run_matches_jax(tmp_path, monkeypatch):

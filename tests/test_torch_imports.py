@@ -40,7 +40,8 @@ def test_importing_every_module_loads_no_jax():
                    "sfm.verify", "sfm.triangulate", "pipelines.import_features",
                    "pipelines.triangulation", "io.jpeg", "ops.nn_dist", "eval.eth3d",
                    "eval.compare", "pipelines.dataset_tools", "pipelines.benchmark",
-                   "__main__"):
+                   "__main__", "ops.sift", "ops.doh", "ops.surf",
+                   "pipelines.extract_features"):
         assert f"lfr_tpu_torch.{module}" in names
     code = (
         "import importlib, sys\n"

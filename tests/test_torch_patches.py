@@ -94,3 +94,19 @@ def test_stacked_img_idx_mode_matches_jax(extract, args):
         single = getattr(patches, extract)(
             torch.from_numpy(stack[idx[n]]), torch.from_numpy(ij[n : n + 1]), *args)
         np.testing.assert_array_equal(got[n].numpy(), single[0].numpy())
+
+
+def test_reflect_coord_and_sample_bilinear():
+    """SIFT's gradient sampler: reflection at the edge pixels' centres, four
+    taps; inside and far outside the image (several reflection periods)."""
+    img = _image(4, 23, 31)
+    rng = np.random.default_rng(5)
+    ij = rng.uniform(-70.0, 90.0, (6, 40, 2)).astype(np.float32)
+    for size in (23, 31, 1):
+        np.testing.assert_array_equal(
+            patches.reflect_coord(torch.from_numpy(ij[..., 0]), size).numpy(),
+            np.asarray(jax_patches.reflect_coord(jnp.asarray(ij[..., 0]), size)))
+    want = np.asarray(jax_patches.sample_bilinear(jnp.asarray(img), jnp.asarray(ij)))
+    got = patches.sample_bilinear(torch.from_numpy(img), torch.from_numpy(ij)).numpy()
+    assert got.shape == (6, 40, 3)
+    np.testing.assert_allclose(got, want, atol=ATOL)
