@@ -79,7 +79,24 @@ Phases, each printing its seconds; any failure ends the run non-zero:
    equal except gate near-ties (at most GATE_DIFFER_SHARE of the points),
    xyz within XYZ_DEPTH_RTOL of the depth; the two card runs write the same
    bytes into two_view_geometries and points3D.txt.
-9. benchmark_eth: ``benchmark eth`` (lfr_tpu_torch.pipelines.benchmark.run_eth)
+9. sfm: incremental SfM (lfr_tpu_torch.pipelines.benchmark.run_sfm: import
+   and verification, then the mapper with PnP registration, triangulation
+   and bundle adjustment; torch ops on the card, no kernel of ours).  (a)
+   A copy of the triangulation phase's full scene without its outputs, with
+   its MatchingFile and planted SolutionFile, ref then raw: one ``{"sfm":
+   ...}`` line per run with the seconds, the mapper's phase_times,
+   analyze_model's stats, the camera-centre errors after a similarity
+   alignment to the planted poses, BA calls and LM steps, and peak memory;
+   the raw run's last global BA run again alone under torch.profiler (busy
+   share, launches per LM step).  Gates: every camera registered (SFM_REGISTERED) in ref and
+   raw; the median and largest centre errors under CENTER_ERROR_MEDIAN and
+   CENTER_ERROR_MAX, which the ref database reconstructed with BA off must
+   fail; ref's mean reprojection error below raw's.  (b) The small scene,
+   ref, twice on the card and once on the CPU (the same CPU-drawn
+   samples): the same images registered in the same order, centres within
+   SFM_CENTER_ATOL after alignment, point counts within SFM_POINT_SHARE, and
+   the two card runs write the same model bytes.
+10. benchmark_eth: ``benchmark eth`` (lfr_tpu_torch.pipelines.benchmark.run_eth)
    with weights/panet_holdout.msgpack, ref and raw with the evaluation, on
    synthetic.eth_workload: 30 rendered views of layered_scene at 1600x1067
    (an ETH3D DSLR image after the sift caps), 640 planted points with 1 px
@@ -101,7 +118,7 @@ Phases, each printing its seconds; any failure ends the run non-zero:
    of a bin's depth limit; (c) ref's accuracy at 1 cm at least
    ETH_ACCURACY_MIN, which raw and the ref PLY shifted by CONTROL_SHIFT_M
    along z must fail.
-10. extract: the user's path from images to the ETH3D numbers with the
+11. extract: the user's path from images to the ETH3D numbers with the
    port's own features, on a copy of benchmark_eth's scene without its
    planted ``.sift`` files (the scan cache kept), with the library's TF32
    defaults (the extractors must compute in f32 whatever they say).  SIFT
@@ -124,9 +141,9 @@ Phases, each printing its seconds; any failure ends the run non-zero:
    launched, nn_dist and the evaluation as above, SIFT's and DoH's
    card-vs-CPU shares at least the lesser control's less CONTROL_MARGIN,
    and SURF's at least SURF_MIN_SHARE with equal keypoint counts.
-11. variants: scripts/bench_corr_variants_torch.py's run (asym, nonorm and
+12. variants: scripts/bench_corr_variants_torch.py's run (asym, nonorm and
    matmul kernels and two PyTorch calls at B=4096).
-12. the kernel list as one JSON line, the card's name and power limit, and
+13. the kernel list as one JSON line, the card's name and power limit, and
    the result line ``{"ok": true, "device": {...}}`` last.
 
 Each path's kernel launches are counted from 0 just before it runs and read
@@ -218,6 +235,33 @@ SOLVE_GRAPHS = (("full", dict(n_images=30, n_points=10000)),
 #: full size (README's 30-camera scene) and a small one for card vs CPU.
 TRI_SCENE = dict(num_cameras=30, num_points=20000)
 TRI_SMALL_SCENE = dict(num_cameras=8, num_points=3000)
+
+#: The sfm phase: every camera of each scene registers in ref and raw, as
+#: JAX's mapper registers 30 of 30 (TRI_SCENE) and 8 of 8 (TRI_SMALL_SCENE)
+#: of these scenes on the CPU, and the port on the CPU too.
+SFM_REGISTERED = {"full": TRI_SCENE["num_cameras"], "small": TRI_SMALL_SCENE["num_cameras"]}
+
+#: Camera centres after a similarity alignment to the planted poses, in
+#: scene units (the cameras lie on an arc of radius 6, 0.054 apart): median
+#: and largest error.  The bounds lie between the card's readings (ref
+#: 6.7e-5 / 4.8e-4, raw 2.9e-4 / 1.15e-3; NVIDIA H100 80GB HBM3 at 700 W,
+#: PERF.md) and those of the control that must fail them, the ref database
+#: reconstructed with bundle adjustment off (MapperOptions ba_iterations =
+#: ba_local_iterations = 0: 1.37e-2 / 2.92e-2).
+CENTER_ERROR_MEDIAN = 2e-3
+CENTER_ERROR_MAX = 6e-3
+
+#: Card vs CPU on the small scene (ref): camera centres after a similarity
+#: alignment of the card's to the CPU's within SFM_CENTER_ATOL, point counts
+#: within SFM_POINT_SHARE.  The control, the CPU against itself on keypoints
+#: scaled by 1 + 2e-7 N(0, 1) (3 seeds), read 3.9e-6 to 5.5e-6 and equal
+#: counts; the bound is 4 times its largest reading, as the parity tests
+#: bound the port against JAX (the card rounds otherwise at every step; it
+#: read 2.6e-6, NVIDIA H100 80GB HBM3 at 700 W; PERF.md).  A point's gate
+#: can flip at a near-tie (at most 1e-3 of the points in the triangulation
+#: phase), hence the count's share.
+SFM_CENTER_ATOL = 2.2e-5
+SFM_POINT_SHARE = 5e-3
 
 #: Median distance of ref's kept points from the ground truth, in scene
 #: units (the scene is 6 units deep).  It lies between the card's ref
@@ -1137,6 +1181,231 @@ def triangulation_phase(tmp):
     return lines
 
 
+def _camera_centres(model):
+    from lfr_tpu_torch.io import colmap_model
+
+    return {im.name: -colmap_model.qvec_to_rotmat(im.qvec).T @ im.tvec
+            for im in model.images.values()}
+
+
+def _aligned_errors(est, ref):
+    """Distances of the centres ``est`` (name -> (3,)) from ``ref`` after
+    the least-squares similarity that maps them onto ``ref`` (Umeyama)."""
+    names = sorted(est.keys() & ref.keys())
+    A = np.array([est[n] for n in names])
+    B = np.array([ref[n] for n in names])
+    a, b = A - A.mean(0), B - B.mean(0)
+    U, S, Vt = np.linalg.svd(b.T @ a)
+    D = np.diag([1.0, 1.0, np.sign(np.linalg.det(U @ Vt))])
+    R = U @ D @ Vt
+    scale = np.trace(np.diag(S) @ D) / (a**2).sum()
+    return np.linalg.norm(scale * a @ R.T + B.mean(0) - B, axis=1)
+
+
+class _SfmMeter:
+    """Counts the mapper's BA calls and LM steps per run (local / global),
+    the run's seconds and peak memory, and keeps each run's last global BA
+    problem for :meth:`trace`.  It wraps ba.run_ba, the mapper's _run_ba
+    and the benchmark module's reconstruction_pipeline while installed."""
+
+    def __init__(self):
+        self.runs = {}
+        self.last_global = {}
+
+    def __enter__(self):
+        import torch
+
+        from lfr_tpu_torch.pipelines import benchmark
+        from lfr_tpu_torch.sfm import ba, mapper
+
+        self._saved = (ba.run_ba, mapper.IncrementalMapper._run_ba,
+                       benchmark.rec_pipeline.reconstruction_pipeline)
+        run_ba, mapper_run_ba, pipeline = self._saved
+        state = {"kind": None, "counts": None, "tag": None}
+
+        def counted_run_ba(problem, **kw):
+            stats = {}
+            out = run_ba(problem, stats=stats, **kw)
+            c = state["counts"][state["kind"]]
+            c["calls"] += 1
+            c["lm_iterations"] += stats["iterations"]
+            c["lm_steps"] += stats["steps"]
+            if state["kind"] == "global":
+                self.last_global[state["tag"]] = (problem, kw, stats["steps"])
+            return out
+
+        def kind_run_ba(mapper_self, local_around=None, final=False):
+            state["kind"] = "global" if local_around is None else "local"
+            return mapper_run_ba(mapper_self, local_around, final)
+
+        def metered_pipeline(dataset_path, method_name, matches_file, solution_file=None,
+                             *args, **kw):
+            tag = "raw" if solution_file is None else "ref"
+            state["tag"] = tag
+            state["counts"] = {k: {"calls": 0, "lm_iterations": 0, "lm_steps": 0}
+                               for k in ("local", "global")}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = pipeline(dataset_path, method_name, matches_file, solution_file, *args, **kw)
+            torch.cuda.synchronize()
+            self.runs[tag] = {"seconds": time.perf_counter() - t0, "ba": state["counts"],
+                              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+            return out
+
+        ba.run_ba = counted_run_ba
+        mapper.IncrementalMapper._run_ba = kind_run_ba
+        benchmark.rec_pipeline.reconstruction_pipeline = metered_pipeline
+        return self
+
+    def __exit__(self, *exc):
+        from lfr_tpu_torch.pipelines import benchmark
+        from lfr_tpu_torch.sfm import ba, mapper
+
+        (ba.run_ba, mapper.IncrementalMapper._run_ba,
+         benchmark.rec_pipeline.reconstruction_pipeline) = self._saved
+
+    def trace(self, tag):
+        """The run's last global BA, run again alone under torch.profiler
+        (after a warm-up call): wall and kernel time, the device's busy
+        share, launches per LM step and the costliest kernels."""
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        from lfr_tpu_torch.sfm import ba
+
+        problem, kw, steps = self.last_global[tag]
+        ba.run_ba(problem, **kw)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            ba.run_ba(problem, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        cuda = torch.autograd.DeviceType.CUDA
+        by_name = {}
+        for evt in prof.events():
+            if evt.device_type == cuda and not evt.is_user_annotation:
+                count, ms = by_name.get(evt.name, (0, 0.0))
+                by_name[evt.name] = count + 1, ms + evt.time_range.elapsed_us() / 1e3
+        kernel_ms = sum(ms for _, ms in by_name.values())
+        launches = sum(c for k, (c, _) in by_name.items() if "memcpy" not in k.lower())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+        return {"wall_s": wall, "kernel_ms": kernel_ms,
+                "device_busy_share": kernel_ms / (wall * 1e3), "lm_steps": steps,
+                "launches": launches, "launches_per_lm_step": launches / max(steps, 1),
+                "ms_per_lm_step": wall * 1e3 / max(steps, 1),
+                "top_kernels": [{"name": k[:80], "count": c, "ms": ms} for k, (c, ms) in top[:6]]}
+
+
+def _model_bytes(root, tag):
+    out = []
+    for name in ("images.txt", "points3D.txt"):
+        with open(os.path.join(root, f"sparse-sift-{tag}", name), "rb") as fh:
+            out.append(fh.read())
+    return out
+
+
+def sfm_phase(tmp):
+    """Incremental SfM on the card: (a) the full scene, ref and raw, with
+    the gates and their control; (b) card vs CPU and card vs card on the
+    small scene.  Reuses the triangulation phase's pristine scenes."""
+    from lfr_tpu_torch.io import colmap_db, colmap_model
+    from lfr_tpu_torch.pipelines import benchmark, reconstruction
+    from lfr_tpu_torch.sfm import mapper
+
+    root = os.path.join(tmp, "sfm_full")
+    shutil.copytree(os.path.join(tmp, "tri_full"), root,
+                    ignore=shutil.ignore_patterns("sift-*.db", "sparse-*"))
+    truth = colmap_model.read_model(os.path.join(root, "dslr_calibration_undistorted"))
+    truth = _camera_centres(truth)
+    out = os.path.join(tmp, "sfm_out")
+    t0 = time.perf_counter()
+    with _SfmMeter() as meter:
+        results = benchmark.run_sfm(root, "sift", output_path=out,
+                                    matches_file=os.path.join(root, "matches.pb"),
+                                    solution_file=os.path.join(root, "solution.pb"),
+                                    verbose=False)
+    seconds = time.perf_counter() - t0
+    lines = {}
+    for tag in ("ref", "raw"):
+        rec = dict(results[tag]["reconstruction"])
+        model = colmap_model.read_model(os.path.join(root, f"sparse-sift-{tag}"))
+        errors = _aligned_errors(_camera_centres(model), truth)
+        line = {"run": tag, **meter.runs[tag], "phase_times": rec.pop("phase_times"),
+                "stats": rec, "matching": results[tag]["matching"],
+                "center_error_median": float(np.median(errors)),
+                "center_error_max": float(errors.max()), "scene": TRI_SCENE}
+        if tag == "raw":
+            line["last_global_ba_traced"] = meter.trace(tag)
+        lines[tag] = line
+        print(json.dumps({"sfm": line}), flush=True)
+
+    # The control: the ref database reconstructed with bundle adjustment off.
+    control_db = os.path.join(tmp, "sfm_control.db")
+    shutil.copyfile(os.path.join(root, "sift-ref.db"), control_db)
+    db = colmap_db.ColmapDatabase(control_db)
+    t0 = time.perf_counter()
+    model, stats = mapper.reconstruct(
+        db, mapper.MapperOptions(ba_iterations=0, ba_local_iterations=0), verbose=False)
+    db.close()
+    errors = _aligned_errors(_camera_centres(model), truth)
+    control = {"ba_off_registered": stats["num_reg_images"],
+               "ba_off_center_error_median": float(np.median(errors)),
+               "ba_off_center_error_max": float(errors.max()),
+               "ba_off_mean_reproj_error": stats["mean_reproj_error"],
+               "seconds": time.perf_counter() - t0}
+    for tag, line in lines.items():
+        if line["stats"]["num_reg_images"] != SFM_REGISTERED["full"]:
+            raise RuntimeError(f"sfm {tag}: {line['stats']['num_reg_images']} images registered")
+        if not (line["center_error_median"] < CENTER_ERROR_MEDIAN
+                and line["center_error_max"] < CENTER_ERROR_MAX):
+            raise RuntimeError(f"sfm {tag}: camera centres off by {line['center_error_median']}"
+                               f" (median), {line['center_error_max']} (max)")
+    if (control["ba_off_center_error_median"] < CENTER_ERROR_MEDIAN
+            or control["ba_off_center_error_max"] < CENTER_ERROR_MAX):
+        raise RuntimeError(f"sfm: the camera-centre gate passes its control {control}")
+    if not lines["ref"]["stats"]["mean_reproj_error"] < lines["raw"]["stats"]["mean_reproj_error"]:
+        raise RuntimeError("sfm: ref's mean reprojection error is not below raw's")
+
+    # (b) card vs CPU, card vs card, on the small scene.
+    small = os.path.join(tmp, "tri_small")
+    roots = {k: os.path.join(tmp, f"sfm_small_{k}") for k in ("card1", "card2", "cpu")}
+    small_seconds, models = {}, {}
+    for name, path in roots.items():
+        shutil.copytree(small, path, ignore=shutil.ignore_patterns("sift-*.db", "sparse-*"))
+        t0 = time.perf_counter()
+        reconstruction.reconstruction_pipeline(
+            path, "sift", os.path.join(path, "matches.pb"), os.path.join(path, "solution.pb"),
+            verbose=False, device="cpu" if name == "cpu" else "cuda")
+        small_seconds[name] = time.perf_counter() - t0
+        models[name] = colmap_model.read_model(os.path.join(path, "sparse-sift-ref"))
+    order = {k: [im.name for im in m.images.values()] for k, m in models.items()}
+    deviation = _aligned_errors(_camera_centres(models["card1"]), _camera_centres(models["cpu"]))
+    counts = {k: len(m.points3D) for k, m in models.items()}
+    check = {"scene": TRI_SMALL_SCENE, "seconds": small_seconds, "registered": order["card1"],
+             "same_order_as_cpu": order["card1"] == order["cpu"],
+             "center_deviation_max": float(deviation.max()), "points": counts,
+             "identical_bytes_second_card_run": (_model_bytes(roots["card1"], "ref")
+                                                 == _model_bytes(roots["card2"], "ref")),
+             "control": control, "seconds_full_phase_runs": seconds,
+             "bounds": {"center_error_median": CENTER_ERROR_MEDIAN,
+                        "center_error_max": CENTER_ERROR_MAX,
+                        "center_atol": SFM_CENTER_ATOL, "point_share": SFM_POINT_SHARE}}
+    print(json.dumps({"sfm_check": check}), flush=True)
+    if len(order["card1"]) != SFM_REGISTERED["small"]:
+        raise RuntimeError(f"sfm small: {len(order['card1'])} images registered")
+    if not check["same_order_as_cpu"]:
+        raise RuntimeError(f"sfm small: registration order {order['card1']} on the card, "
+                           f"{order['cpu']} on the CPU")
+    if not check["center_deviation_max"] <= SFM_CENTER_ATOL:
+        raise RuntimeError(f"sfm small: card and CPU centres differ by {deviation.max()}")
+    if not abs(counts["card1"] - counts["cpu"]) <= SFM_POINT_SHARE * counts["cpu"]:
+        raise RuntimeError(f"sfm small: {counts} points")
+    if not check["identical_bytes_second_card_run"]:
+        raise RuntimeError("sfm small: a second card run wrote other bytes")
+    return lines
+
+
 def _fixture_sha256():
     """FIXTURE_SHA256 of tests/test_torch_jpeg.py, read without importing the
     test (it imports cv2 and jax, which the card's machine lacks)."""
@@ -1795,6 +2064,12 @@ def main() -> int:
         triangulation_phase(tmp)
         paths["triangulation"] = read_launches()
         phase("triangulation", t0)
+
+        t0 = time.perf_counter()
+        reset_launches()
+        sfm_phase(tmp)
+        paths["sfm"] = read_launches()
+        phase("sfm", t0)
 
         t0 = time.perf_counter()
         paths["benchmark_eth"], nn_row = benchmark_eth_phase(nn_dist, tmp)

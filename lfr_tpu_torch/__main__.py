@@ -1,8 +1,7 @@
 """Unified CLI: ``python -m lfr_tpu_torch <command> ...``.
 
-Every stage the port has is one subcommand of one program, sharing the
-method registry (lfr_tpu_torch/config.py).  Incremental SfM (``reconstruct``)
-comes with its slice of the port.
+Every stage is one subcommand of one program, sharing the method registry
+(lfr_tpu_torch/config.py).
 """
 
 from __future__ import annotations
@@ -27,9 +26,13 @@ COMMANDS = {
         "lfr_tpu_torch.pipelines.triangulation",
         "fixed-pose triangulation pipeline (ETH3D layout)",
     ),
+    "reconstruct": (
+        "lfr_tpu_torch.pipelines.reconstruction",
+        "incremental SfM pipeline (import, verify, mapper) -> COLMAP model",
+    ),
     "benchmark": (
         "lfr_tpu_torch.pipelines.benchmark",
-        "end-to-end eth benchmark driver (ref & raw A/B)",
+        "end-to-end benchmarks: eth, lfe, custom (ref & raw A/B)",
     ),
     "dataset": (
         "lfr_tpu_torch.pipelines.dataset_tools",

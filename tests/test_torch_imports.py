@@ -41,7 +41,8 @@ def test_importing_every_module_loads_no_jax():
                    "pipelines.triangulation", "io.jpeg", "ops.nn_dist", "eval.eth3d",
                    "eval.compare", "pipelines.dataset_tools", "pipelines.benchmark",
                    "__main__", "ops.sift", "ops.doh", "ops.surf",
-                   "pipelines.extract_features"):
+                   "pipelines.extract_features", "sfm.ba", "sfm.pnp", "sfm.mapper",
+                   "pipelines.reconstruction"):
         assert f"lfr_tpu_torch.{module}" in names
     code = (
         "import importlib, sys\n"
