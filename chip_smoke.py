@@ -10,8 +10,11 @@ Phases, each printing its seconds; any failure ends the run non-zero:
    default).
 2. build:   nvcc builds each of lfr_tpu_torch/csrc/correlation.cu and
    nn_dist.cu for sm_90a into a library of its own under
-   lfr_tpu_torch/_build/ (plain-C libraries loaded with ctypes), the two
-   nvcc processes started together.
+   lfr_tpu_torch/_build/ (plain-C libraries loaded with ctypes), and g++
+   builds the host library csrc/lfr_native.cc (the MatchingFile codec, the
+   MSF, the counting argsort), the three compilers started together.  Every
+   later phase decodes and encodes MatchingFiles and builds tracks through
+   that host library (the port's default).
    jpeg:    the port's JPEG decoder on the seven fixture JPEGs; each decoded
    RGB array's SHA-256 must equal FIXTURE_SHA256 of
    tests/test_torch_jpeg.py (which holds them against cv2.imread); prints
@@ -61,7 +64,11 @@ Phases, each printing its seconds; any failure ends the run non-zero:
 8. triangulation: the fixed-pose chain (lfr_tpu_torch.pipelines.triangulation:
    import with batched F + H RANSAC, union-find tracks, batched DLT +
    Gauss-Newton; torch ops on the card, no kernel of ours) on
-   synthetic.triangulation_workload.  (a) The full-size scene (TRI_SCENE:
+   synthetic.triangulation_workload.  First the scene's MatchingFile
+   (519,033 putative matches) is decoded and encoded by the host C++ codec
+   and by its plain numpy version, with each route's seconds: the arrays
+   and names must be equal and both encodings the file's bytes (one
+   ``{"native_codec": ...}`` line).  (a) The full-size scene (TRI_SCENE:
    30 ETH3D DSLR cameras, 20,000 points, 0.5 px noise, 10% rewired
    matches), raw then ref (the planted SolutionFile): one
    ``{"triangulation": ...}`` line per run with the spans, pairs/s of
@@ -141,9 +148,30 @@ Phases, each printing its seconds; any failure ends the run non-zero:
    launched, nn_dist and the evaluation as above, SIFT's and DoH's
    card-vs-CPU shares at least the lesser control's less CONTROL_MARGIN,
    and SURF's at least SURF_MIN_SHARE with equal keypoint counts.
-12. variants: scripts/bench_corr_variants_torch.py's run (asym, nonorm and
+12. train: PANet training (lfr_tpu_torch.models.train; the unfolded model,
+   train-mode correlation as plain torch ops under autograd, as the JAX
+   package's training; its eval-mode forward launches corr_asym).  (a) One
+   f32 Adam step (constant learning rate TRAIN_LR) from
+   weights/panet_holdout.msgpack on a batch of TRAIN_CHECK_PAIRS from
+   sample_batch_warped(np.random.default_rng(0), the fixture JPEGs), card
+   against CPU: the loss, and the parameters and batch statistics as
+   relative norms of their difference over the step's update, each within
+   TRAIN_CONTROL_FACTOR times the larger of two CPU controls (the CPU step
+   on inputs scaled by 1 + PERTURB N(0, 1), and the CPU step with oneDNN
+   off); one ``{"train_check": ...}`` line.  (b) train(num_steps=TRAIN_STEPS,
+   batch_size=TRAIN_BATCH, corpus="synthetic", seed=0) in bf16 (the CLI's
+   defaults but the step count), then the same at learning rate 0 as the
+   control: steps/s, patch pairs/s, host sampling and step seconds per
+   step, peak memory; the mean loss of the last 16 steps must lie below the
+   first 16's by TRAIN_LOSS_DROP, which the control must fail; one traced
+   chunk of 16 steps gives the kernel ms, launches and busy share per step.
+   (c) evaluate_px_error on 256 warped fixture pairs before and after
+   training (corr_asym launches), save_variables -> load_variables equal
+   bit for bit, and the trained checkpoint folded into TwoViewRefiner on
+   bench.py's pair with finite flows.  Launches count for the path "train".
+13. variants: scripts/bench_corr_variants_torch.py's run (asym, nonorm and
    matmul kernels and two PyTorch calls at B=4096).
-13. the kernel list as one JSON line, the card's name and power limit, and
+14. the kernel list as one JSON line, the card's name and power limit, and
    the result line ``{"ok": true, "device": {...}}`` last.
 
 Each path's kernel launches are counted from 0 just before it runs and read
@@ -366,6 +394,30 @@ STAGE_VIEWS = 5
 
 #: Steps of the failed-Cholesky check.
 LM_CHECK_ITER = 4
+
+#: The train phase.  (a) the card-vs-CPU step: batch, learning rate, and
+#: the factor on the larger CPU control.  Why two controls: the card's
+#: cuDNN convolutions sum in another order than the CPU's oneDNN, and Adam's
+#: first step moves each parameter by about lr times the sign of its
+#: gradient, so entries with rounding-level gradients flip; the input
+#: perturbation alone does not reach that (the CPU tests read the port
+#: against JAX at 1.0-2.3 times the oneDNN-off control and 4-25 times the
+#: perturbation control).
+TRAIN_CHECK_PAIRS = 16
+TRAIN_LR = 1e-3
+TRAIN_CONTROL_FACTOR = 4.0
+#: (b) the training run (the CLI's defaults but the step count) and its
+#: gate: the mean loss of the first 16 steps over that of the last 16.  The
+#: same runs on the CPU (scripts/train_torch_loss_drop.py, PERF.md) read
+#: 82.3 at TRAIN_LR and 0.975 at learning rate 0.  The bound is a quarter
+#: of the CPU's 82.3: the card's bf16 run (cuDNN's backward sums in another
+#: order, not deterministically) may end at up to 4 times the CPU's last
+#: losses and pass, while a run that does not learn reads about 1 and fails.
+TRAIN_STEPS = 256
+TRAIN_BATCH = 64
+TRAIN_LOSS_DROP = 20.0
+#: (c) pairs of the validation batch (two eval chunks of 128).
+TRAIN_EVAL_PAIRS = 256
 
 BATCH = 2048
 REPS = 3
@@ -1108,6 +1160,39 @@ def _geometry_bytes(root):
         return rows, fh.read()
 
 
+def native_codec_check(matches_file):
+    """The MatchingFile codec's two routes on one file: decode and encode
+    seconds of the host C++ codec and of its plain numpy version; the
+    decoded arrays and names must be equal and both encodings the file."""
+    from lfr_tpu_torch.io import protos
+
+    with open(matches_file, "rb") as fh:
+        data = fh.read()
+    seconds, pairs, blobs = {}, {}, {}
+    for route, native in (("native", True), ("numpy", False)):
+        t0 = time.perf_counter()
+        pairs[route] = protos.decode_matching_file(data, use_native=native)
+        seconds[f"decode_{route}_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        blobs[route] = protos.encode_matching_file(pairs[route], use_native=native)
+        seconds[f"encode_{route}_s"] = time.perf_counter() - t0
+    equal = len(pairs["native"]) == len(pairs["numpy"]) and all(
+        (a.image_name1, a.fact1, a.image_name2, a.fact2)
+        == (b.image_name1, b.fact1, b.image_name2, b.fact2)
+        and all(getattr(a, f).dtype == getattr(b, f).dtype
+                and getattr(a, f).tobytes() == getattr(b, f).tobytes()
+                for f in ("matches", "similarities", "disp1", "disp2"))
+        for a, b in zip(pairs["native"], pairs["numpy"]))
+    line = {"pairs": len(pairs["native"]),
+            "matches": sum(p.num_matches for p in pairs["native"]), "bytes": len(data),
+            **seconds, "decode_speedup": seconds["decode_numpy_s"] / seconds["decode_native_s"],
+            "decoded_equal": equal,
+            "encoded_equal": blobs["native"] == blobs["numpy"] == data}
+    print(json.dumps({"native_codec": line}), flush=True)
+    if not (line["decoded_equal"] and line["encoded_equal"]):
+        raise RuntimeError(f"native codec differs from its numpy version: {line}")
+
+
 def triangulation_phase(tmp):
     """The fixed-pose chain on the card: (a) full size, raw and ref, with the
     gates and their controls; (b) card vs CPU and card vs card on the small
@@ -1121,6 +1206,7 @@ def triangulation_phase(tmp):
     t0 = time.perf_counter()
     truth = synthetic.triangulation_workload(np.random.default_rng(2), root, **TRI_SCENE)
     made_s = time.perf_counter() - t0
+    native_codec_check(truth["matches_file"])
     ids, point_of = _tri_truth(root, truth)
     lines = {}
     for solution in (None, truth["solution_file"]):
@@ -1985,6 +2071,189 @@ def _extract_phase(nn_dist, scene_root, tmp):
     return launches, nn_err
 
 
+def _flat(tree, prefix=""):
+    out = {}
+    for key, value in tree.items():
+        name = f"{prefix}/{key}" if prefix else key
+        out.update(_flat(value, name) if isinstance(value, dict) else {name: np.asarray(value)})
+    return out
+
+
+def _train_groups(keys):
+    """Parameters, the head's conv biases (no gradient: the BatchNorm after
+    them removes any per-channel constant, so any implementation moves them
+    by rounding noise), and the batch statistics."""
+    zero = [f"params/refine/conv{i}/bias" for i in range(4)]
+    return {"params": [k for k in keys if k.startswith("params") and k not in zero],
+            "zero_grad": zero,
+            "batch_stats": [k for k in keys if k.startswith("batch_stats")]}
+
+
+def _relative(a, b, keys, start):
+    """|a - b| over |b - start| as norms over the leaves of ``keys``."""
+    num = sum(float(np.sum((a[k].astype(np.float64) - b[k]) ** 2)) for k in keys)
+    den = sum(float(np.sum((b[k].astype(np.float64) - start[k]) ** 2)) for k in keys)
+    return (num / den) ** 0.5
+
+
+def _train_step_once(variables, batch, device, mkldnn=True):
+    """One f32 Adam step at TRAIN_LR: (loss, variables after, flat)."""
+    import torch
+
+    from lfr_tpu_torch.models import panet, train
+
+    with torch.backends.mkldnn.flags(enabled=mkldnn):
+        model = train.load_model(variables, torch.float32, device).train()
+        optimizer, _ = train.make_optimizer(model, TRAIN_LR)
+        ref, tgt, delta = (torch.from_numpy(x).to(device) for x in batch)
+        loss = float(train.train_step(model, optimizer, ref, tgt, delta))
+    return loss, _flat(panet.to_jax_variables(model))
+
+
+def _fixture_images():
+    from lfr_tpu_torch.io.images import load_image_rgb
+
+    return [load_image_rgb(os.path.join(HERE, "tests", "fixtures", rel)).astype(np.float32)
+            for rel in sorted(_fixture_sha256())]
+
+
+def _traced_train_chunk(variables, images):
+    """16 bf16 train steps under torch.profiler after two warm-up steps:
+    wall and kernel ms per step, launches per step, busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lfr_tpu_torch.models import train
+
+    model = train.load_model(variables, torch.bfloat16, "cuda").train()
+    optimizer, _ = train.make_optimizer(model, TRAIN_LR)
+    rng = np.random.default_rng(1)
+    batches = [tuple(torch.from_numpy(x).cuda() for x in train.sample_batch(rng, images, TRAIN_BATCH))
+               for _ in range(train.CHUNK + 2)]
+    for b in batches[:2]:
+        train.train_step(model, optimizer, *b)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches[2:]:
+            train.train_step(model, optimizer, *b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    by_name = {}
+    for evt in prof.events():
+        if evt.device_type == cuda and not evt.is_user_annotation:
+            count, ms = by_name.get(evt.name, (0, 0.0))
+            by_name[evt.name] = count + 1, ms + evt.time_range.elapsed_us() / 1e3
+    n = train.CHUNK
+    kernel_ms = sum(ms for _, ms in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    return {"steps": n, "wall_ms_per_step": wall * 1e3 / n, "kernel_ms_per_step": kernel_ms / n,
+            "device_busy_share": kernel_ms / (wall * 1e3),
+            "launches_per_step": sum(c for k, (c, _) in by_name.items()
+                                     if "memcpy" not in k.lower()) / n,
+            "top_kernels": [{"name": k[:80], "count": c, "ms": ms} for k, (c, ms) in top[:8]]}
+
+
+def train_phase(tmp):
+    """PANet training on the card: (a) one f32 step card vs CPU within the
+    controls, (b) the training run with its loss gate and learning-rate-0
+    control, (c) validation error, checkpoint round trip and refinement
+    with the trained weights."""
+    import hashlib
+
+    import torch
+
+    from lfr_tpu_torch.models import checkpoint, panet, train
+    from lfr_tpu_torch.pipelines.refinement import TwoViewRefiner, prepare_image
+    from lfr_tpu_torch.utils import synthetic
+
+    holdout = checkpoint.load_variables(os.path.join(HERE, "weights", "panet_holdout.msgpack"))
+    images = _fixture_images()
+
+    # (a) one step, card against CPU, with the two CPU controls.
+    batch = train.sample_batch_warped(np.random.default_rng(0), images, TRAIN_CHECK_PAIRS)
+    rng = np.random.default_rng(5)
+    perturbed = tuple((x * (1 + PERTURB * rng.standard_normal(x.shape))).astype(np.float32)
+                      if i < 2 else x for i, x in enumerate(batch))
+    t0 = time.perf_counter()
+    card_loss, card = _train_step_once(holdout, batch, "cuda")
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_loss, cpu = _train_step_once(holdout, batch, "cpu")
+    cpu_s = time.perf_counter() - t0
+    pert_loss, pert = _train_step_once(holdout, perturbed, "cpu")
+    route_loss, route = _train_step_once(holdout, batch, "cpu", mkldnn=False)
+    start = _flat(holdout)
+    check = {"pairs": TRAIN_CHECK_PAIRS, "card_s": card_s, "cpu_s": cpu_s,
+             "loss": {"card": card_loss, "cpu": cpu_loss, "diff": abs(card_loss - cpu_loss),
+                      "control": max(abs(pert_loss - cpu_loss), abs(route_loss - cpu_loss))}}
+    for name, keys in _train_groups(cpu).items():
+        check[name] = {"diff": _relative(card, cpu, keys, start),
+                       "control": max(_relative(pert, cpu, keys, start),
+                                      _relative(route, cpu, keys, start))}
+    check["factor"] = TRAIN_CONTROL_FACTOR
+    print(json.dumps({"train_check": check}), flush=True)
+    for name in ("loss", "params", "zero_grad", "batch_stats"):
+        if not check[name]["diff"] <= TRAIN_CONTROL_FACTOR * check[name]["control"]:
+            raise RuntimeError(f"train: card vs CPU {name} {check[name]} beyond "
+                               f"{TRAIN_CONTROL_FACTOR} x the control")
+
+    # (b) the training run and its learning-rate-0 control.
+    runs = {}
+    for label, lr in (("trained", TRAIN_LR), ("lr_0_control", 0.0)):
+        timing = {}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        variables = train.train(num_steps=TRAIN_STEPS, batch_size=TRAIN_BATCH, corpus="synthetic",
+                                seed=0, learning_rate=lr, log_every=64, timing=timing)
+        seconds = time.perf_counter() - t0
+        losses = np.asarray(timing["losses"])
+        line = {"run": label, "learning_rate": lr, "steps": TRAIN_STEPS, "batch": TRAIN_BATCH,
+                "seconds": seconds, "steps_per_s": TRAIN_STEPS / seconds,
+                "patch_pairs_per_s": TRAIN_STEPS * TRAIN_BATCH / seconds,
+                "host_sampling_ms_per_step": timing["sample"] * 1e3 / TRAIN_STEPS,
+                "step_ms_per_step": timing["steps"] * 1e3 / TRAIN_STEPS,
+                "loss_first16": float(losses[:16].mean()), "loss_last16": float(losses[-16:].mean()),
+                "loss_drop": float(losses[:16].mean() / losses[-16:].mean()),
+                "finite": bool(np.isfinite(losses).all()),
+                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+        print(json.dumps({"train": line}), flush=True)
+        runs[label] = (line, variables)
+    trained_line, trained = runs["trained"]
+    if not (trained_line["finite"] and trained_line["loss_drop"] >= TRAIN_LOSS_DROP):
+        raise RuntimeError(f"train: loss drop {trained_line['loss_drop']} < {TRAIN_LOSS_DROP}")
+    if runs["lr_0_control"][0]["loss_drop"] >= TRAIN_LOSS_DROP:
+        raise RuntimeError("train: the learning-rate-0 control passes the loss gate")
+    trace = _traced_train_chunk(trained, train.synthetic_images(np.random.default_rng(0)))
+    print(json.dumps({"train_trace": trace}), flush=True)
+
+    # (c) validation, checkpoint round trip, refinement with the weights.
+    val = train.sample_batch_warped(np.random.default_rng(12345), images, TRAIN_EVAL_PAIRS)
+    px = {"before": train.evaluate_px_error(panet.init_variables(0), val),
+          "after": train.evaluate_px_error(trained, val)}
+    path = os.path.join(tmp, "trained.msgpack")
+    checkpoint.save_variables(path, trained)
+    loaded = checkpoint.load_variables(path)
+    want, got = _flat(trained), _flat(loaded)
+    round_trip = list(want) == list(got) and all(
+        want[k].dtype == got[k].dtype and want[k].tobytes() == got[k].tobytes() for k in want)
+    image1, image2, kps1, kps2, matches = synthetic.bench_workload(np.random.default_rng(0))
+    refiner = TwoViewRefiner(loaded, batch_size=BATCH, fine_mode="grid", device="cuda")
+    g12, g21 = refiner.refine_matches(prepare_image(image1, "cuda"), kps1,
+                                      prepare_image(image2, "cuda"), kps2, matches)
+    finite = bool(np.isfinite(g12).all() and np.isfinite(g21).all())
+    init = checkpoint.dumps(panet.init_variables(0))
+    line = {"init_sha256": hashlib.sha256(init).hexdigest(),
+            "val_pairs": TRAIN_EVAL_PAIRS, "val_px_error": px, "round_trip_bit_equal": round_trip,
+            "checkpoint_bytes": os.path.getsize(path), "refined_matches": len(matches),
+            "refined_finite": finite,
+            "refined_center_median_px": float(np.median(np.abs(g12[:, 1, 1]))) * 16.0}
+    print(json.dumps({"train_result": line}), flush=True)
+    if not (round_trip and finite and all(np.isfinite(v) for v in px.values())):
+        raise RuntimeError(f"train: {line}")
+
+
 def variants_phase():
     """scripts/bench_corr_variants_torch.py's path at B=4096."""
     sys.path.insert(0, os.path.join(HERE, "scripts"))
@@ -2025,10 +2294,21 @@ def main() -> int:
     phase("device", t0)
 
     t0 = time.perf_counter()
-    for name, (path, seconds, log) in cuda_build.build_all().items():
-        print(f"built {os.path.relpath(path, HERE)} in {seconds:.3f} s", flush=True)
+    from concurrent.futures import ThreadPoolExecutor
+
+    from lfr_tpu_torch.ops import host_build
+
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        host = pool.submit(host_build.build)
+        for name, (path, seconds, log) in cuda_build.build_all().items():
+            print(f"built {os.path.relpath(path, HERE)} in {seconds:.3f} s", flush=True)
+            print(log.strip(), flush=True)
+            cuda_build.library(name)
+        path, seconds, log = host.result()
+    print(f"built {os.path.relpath(path, HERE)} in {seconds:.3f} s (g++)", flush=True)
+    if log.strip():
         print(log.strip(), flush=True)
-        cuda_build.library(name)
+    host_build.library()
     phase("build", t0)
 
     t0 = time.perf_counter()
@@ -2081,6 +2361,14 @@ def main() -> int:
         paths["extract_eth"], nn_err = extract_phase(nn_dist, os.path.join(tmp, "eth_scene"), tmp)
         nn_row["max_abs_err"] = max(nn_err, nn_row["max_abs_err"])
         phase("extract", t0)
+
+        t0 = time.perf_counter()
+        reset_launches()
+        train_phase(tmp)
+        paths["train"] = read_launches()
+        if not paths["train"]["corr_asym"] > 0:
+            raise RuntimeError(f"train: corr_asym was not launched ({paths['train']})")
+        phase("train", t0)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

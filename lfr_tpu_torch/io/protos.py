@@ -3,9 +3,13 @@
 Byte-compatible with the reference's protobuf artifacts
 (reference: types.proto:1-46; writers at two-view-refinement/
 compute_match_graph.py:163-205 and multi-view-refinement/solve.cc:643-679).
-The per-match 2x(3x3) float displacement grids are encoded with vectorised
-numpy and decoded straight into arrays.  This is the JAX package's numpy
-route (``use_native=False`` there); its C++ codec is not part of the port.
+The MatchingFile codec runs in host C++ by default (``use_native=True``:
+``solver/native.py`` over ``csrc/lfr_native.cc``, as the JAX package's
+default); ``use_native=False`` takes the numpy route, its plain version,
+which encodes the per-match 2x(3x3) float displacement grids with vectorised
+numpy and decodes straight into arrays.  Both give the same bytes and
+arrays.  The port's C++ decoder keeps an empty ``image_name1`` empty, as the
+numpy route does (the JAX package's moves ``image_name2`` there).
 """
 
 from __future__ import annotations
@@ -148,7 +152,11 @@ def _scalar_float(tag: int, value: float) -> bytes:
     return bytes([tag]) + struct.pack("<f", value)
 
 
-def encode_matching_file(pairs: Sequence[PairMatches]) -> bytes:
+def encode_matching_file(pairs: Sequence[PairMatches], use_native: bool = True) -> bytes:
+    if use_native:
+        from ..solver import native
+
+        return native.encode_matching_file(pairs)
     out = bytearray()
     for pair in pairs:
         body = (
@@ -309,7 +317,11 @@ def _parse_pair(buf, pos: int, end: int) -> PairMatches:
     return PairMatches(name1, fact1, name2, fact2, matches, sims, disp1, disp2)
 
 
-def decode_matching_file(data: bytes) -> List[PairMatches]:
+def decode_matching_file(data: bytes, use_native: bool = True) -> List[PairMatches]:
+    if use_native:
+        from ..solver import native
+
+        return native.decode_matching_file(data)
     buf = memoryview(data)
     pos = 0
     end = len(buf)

@@ -11,13 +11,16 @@ in the padded image's coordinates and outputs are f32.
 
 :func:`sample_bilinear` is the plain gather form of the JAX package's
 ``sample_bilinear`` (reflection at the edge pixels' centers, four taps),
-which SIFT's gradient sampling uses.
+which SIFT's gradient sampling and :func:`extract_patches` use.
+:func:`reflect_pad_image` and :func:`extract_patches` complete the module
+(lfr_tpu/ops/patches.py:257,272); no pipeline calls them.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..config import PATCH_SIZE
@@ -37,11 +40,14 @@ def reflect_coord(x: torch.Tensor, size: int) -> torch.Tensor:
     return torch.where(x > span, 2.0 * span - x, x)
 
 
-def sample_bilinear(image: torch.Tensor, ij: torch.Tensor) -> torch.Tensor:
+def sample_bilinear(
+    image: torch.Tensor, ij: torch.Tensor, size: Optional[Tuple[int, int]] = None
+) -> torch.Tensor:
     """Bilinearly sample ``image`` (H, W, C) at continuous (row, col)
     positions ``ij`` (..., 2) with reflection at the border
-    (lfr_tpu/ops/patches.py:33).  Returns (..., C)."""
-    h, w = image.shape[0], image.shape[1]
+    (lfr_tpu/ops/patches.py:33).  ``size``: the valid (h, w) extent of a
+    padded image, which reflection and clamping then use.  Returns (..., C)."""
+    h, w = (image.shape[0], image.shape[1]) if size is None else (int(size[0]), int(size[1]))
     i = reflect_coord(ij[..., 0], h)
     j = reflect_coord(ij[..., 1], w)
     i0f = torch.floor(i)
@@ -158,3 +164,35 @@ def extract_crops_unit(
     bi, wi = _hat_weights(pos_i[:, 0], pos_i, h, window)
     bj, wj = _hat_weights(pos_j[:, 0], pos_j, w, window)
     return _sample(image_padded, bi, wi, bj, wj, window, img_idx)
+
+
+def patch_offsets(patch_size: int = PATCH_SIZE, device=None) -> torch.Tensor:
+    """(ps, ps, 2) f32 grid of (di, dj) offsets spanning +-ps/2 px at spacing
+    ps/(ps-1) (lfr_tpu/ops/patches.py:75)."""
+    r = _linspace_offsets(patch_size, device)
+    return torch.stack(torch.meshgrid(r, r, indexing="ij"), dim=-1)
+
+
+def effective_margin(image: np.ndarray, margin: int = REFLECT_MARGIN) -> int:
+    """The margin :func:`reflect_pad_image` pads: capped below the image size."""
+    return int(min(margin, image.shape[0] - 1, image.shape[1] - 1))
+
+
+def reflect_pad_image(image: np.ndarray, margin: int = REFLECT_MARGIN) -> np.ndarray:
+    """Host-side reflect-101 padding of an (H, W, C) array by
+    :func:`effective_margin` (lfr_tpu/ops/patches.py:257)."""
+    m = effective_margin(image, margin)
+    return np.pad(image, ((m, m), (m, m), (0, 0)), mode="reflect")
+
+
+def extract_patches(
+    image: torch.Tensor, ij: torch.Tensor, patch_size: int = PATCH_SIZE,
+    size: Optional[Tuple[int, int]] = None,
+) -> torch.Tensor:
+    """Patches centered at continuous (i, j) positions by four-tap bilinear
+    gathers with reflection (lfr_tpu/ops/patches.py:272).  image (H, W, C),
+    ij (N, 2), ``size`` the valid extent of a padded image.  Returns
+    (N, ps, ps, C)."""
+    offs = patch_offsets(patch_size, image.device)
+    coords = ij[:, None, None, :].float() + offs[None]
+    return sample_bilinear(image, coords, size=size)

@@ -1,10 +1,14 @@
 """Pack graph components into padded size buckets for the batched solver.
 
-Port of lfr_tpu/solver/buckets.py on its numpy routes.  Components are
+Port of lfr_tpu/solver/buckets.py.  Components are
 grouped by power-of-two node-count buckets, padded, and solved as dense
 batches.  Packing is vectorized (flat segment gathers and 2-D scatters, no
 per-component loop) and exposed as a generator (:func:`iter_packed`) so the
-solve can pack batch k+1 while the device solves batch k.
+solve can pack batch k+1 while the device solves batch k.  The grouping by
+component is the host C++ counting argsort (``native``; numpy's stable
+argsort gives the same order); the flat gathers stay numpy (the JAX
+package's native gather-scatter serves a packing layout the port does not
+use).
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 
+from . import native
 from .graph import PatchGraph
 from .lm import ComponentBatch
 from .tracks import Tracks
@@ -79,11 +84,11 @@ def iter_packed(
     ecomp = component_idx[esrc]
 
     # Group nodes and edges by component.
-    node_order = np.argsort(component_idx, kind="stable")
+    node_order = native.counting_argsort(component_idx, n_comp)
     node_starts = np.searchsorted(component_idx[node_order], np.arange(n_comp))
     node_ends = np.append(node_starts[1:], n_nodes)
 
-    edge_order = np.argsort(ecomp, kind="stable")
+    edge_order = native.counting_argsort(ecomp, n_comp)
     edge_starts = np.searchsorted(ecomp[edge_order], np.arange(n_comp))
     edge_ends = np.append(edge_starts[1:], esrc.shape[0])
 

@@ -1,10 +1,12 @@
 """Track building: maximum-spanning-forest with image-disjointness (host).
 
-Port of lfr_tpu/solver/tracks.py on its Python route.  Union-find over match
+Port of lfr_tpu/solver/tracks.py.  Union-find over match
 edges sorted by similarity (descending); a merge is rejected when the two
 trees already observe a common image, so a track holds at most one feature
 per image (reference: solve.cc:67-77,488-541).  The anchor of each track
-follows solve.cc:551-582.
+follows solve.cc:551-582.  The sort and the union-find run in host C++
+(``native``) unless ``use_native=False`` picks numpy's lexsort and
+:func:`_msf`, their plain versions; the tracks are the same.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import dataclasses
 
 import numpy as np
 
+from . import native
 from .graph import PatchGraph
 
 
@@ -65,15 +68,20 @@ def _msf(
     return np.asarray(parent, dtype=np.int64)
 
 
-def build_tracks(graph: PatchGraph) -> Tracks:
+def build_tracks(graph: PatchGraph, use_native: bool = True) -> Tracks:
     n = graph.num_nodes
     if n == 0:
         return Tracks(np.zeros(0, dtype=np.int64), np.zeros(0, dtype=bool), 0, 0)
 
     # Matches by similarity descending; ties broken like the C++ (sim, src,
     # dst) tuple sort: larger src, then larger dst first.
-    order = np.lexsort((graph.match_dst, graph.match_src, graph.match_sim))[::-1]
-    parent = _msf(order, graph.match_src, graph.match_dst, graph.node_image, n)
+    src, dst, sim = graph.match_src, graph.match_dst, graph.match_sim
+    if use_native:
+        order = native.sort_matches_desc(sim, src, dst)
+        parent = native.msf_union_find(order, src, dst, graph.node_image, n)
+    else:
+        order = np.lexsort((dst, src, sim))[::-1]
+        parent = _msf(order, src, dst, graph.node_image, n)
 
     # Track ids from roots, in node order (solve.cc:526-541); every node is
     # resolved to its root by pointer jumping.

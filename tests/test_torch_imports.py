@@ -1,7 +1,8 @@
 """lfr_tpu_torch, chip_smoke.py and the port's scripts import torch, numpy,
 scipy (the solver's partition) and the standard library only: none of the
-JAX stack, nothing of lfr_tpu, and no image library (the card's machine has
-no cv2, PIL or torchvision)."""
+JAX stack (jax, flax, optax, msgpack), nothing of lfr_tpu, no image library
+(the card's machine has no cv2, PIL or torchvision) and not sklearn (the
+training corpus finds its photos through ``sysconfig``)."""
 
 import ast
 import pathlib
@@ -10,7 +11,8 @@ import sys
 
 PKG = pathlib.Path(__file__).resolve().parents[1] / "lfr_tpu_torch"
 ROOT = PKG.parent
-FORBIDDEN = ("jax", "flax", "msgpack", "lfr_tpu", "cv2", "PIL", "torchvision")
+FORBIDDEN = ("jax", "flax", "optax", "msgpack", "lfr_tpu", "cv2", "PIL", "torchvision",
+             "sklearn")
 #: Scripts of the port outside the package, by module name and path.
 SCRIPTS = {
     "chip_smoke": ROOT / "chip_smoke.py",
@@ -18,6 +20,7 @@ SCRIPTS = {
     "ablate_torch_corr": ROOT / "scripts" / "ablate_torch_corr.py",
     "profile_torch_solve": ROOT / "scripts" / "profile_torch_solve.py",
     "profile_torch_triangulation": ROOT / "scripts" / "profile_torch_triangulation.py",
+    "train_torch_loss_drop": ROOT / "scripts" / "train_torch_loss_drop.py",
 }
 
 
@@ -42,7 +45,8 @@ def test_importing_every_module_loads_no_jax():
                    "eval.compare", "pipelines.dataset_tools", "pipelines.benchmark",
                    "__main__", "ops.sift", "ops.doh", "ops.surf",
                    "pipelines.extract_features", "sfm.ba", "sfm.pnp", "sfm.mapper",
-                   "pipelines.reconstruction"):
+                   "pipelines.reconstruction", "ops.host_build", "solver.native",
+                   "models.train", "models.torch_import", "utils.corpus"):
         assert f"lfr_tpu_torch.{module}" in names
     code = (
         "import importlib, sys\n"

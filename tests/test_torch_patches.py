@@ -110,3 +110,33 @@ def test_reflect_coord_and_sample_bilinear():
     got = patches.sample_bilinear(torch.from_numpy(img), torch.from_numpy(ij)).numpy()
     assert got.shape == (6, 40, 3)
     np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+@pytest.mark.parametrize("margin", [96, 5])
+def test_reflect_pad_image_matches_jax(margin):
+    """Reflect-101 padding, the margin capped below the image size."""
+    img = _image(6, 23, 40)
+    want = jax_patches.reflect_pad_image(img, margin)
+    got = patches.reflect_pad_image(img, margin)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    assert patches.effective_margin(img, margin) == jax_patches.effective_margin(img, margin)
+
+
+@pytest.mark.parametrize("padded", [False, True], ids=["plain", "padded_with_size"])
+def test_extract_patches_matches_jax(padded):
+    """The four-tap patch extractor, on an image and on a zero-padded copy
+    whose valid extent is given by ``size``."""
+    img = _image(7, 50, 61)
+    ij = _centers(*img.shape[:2])
+    size = None
+    if padded:
+        img = np.pad(img, ((0, 14), (0, 3), (0, 0)))
+        size = (50, 61)
+    want = np.asarray(jax_patches.extract_patches(
+        jnp.asarray(img), jnp.asarray(ij), size=None if size is None else jnp.asarray(size)))
+    got = patches.extract_patches(torch.from_numpy(img), torch.from_numpy(ij), size=size)
+    assert tuple(got.shape) == (8, 33, 33, 3)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+    np.testing.assert_array_equal(
+        patches.patch_offsets(33).numpy(), np.asarray(jax_patches.patch_offsets(33)))
