@@ -169,10 +169,39 @@ Phases, each printing its seconds; any failure ends the run non-zero:
    training (corr_asym launches), save_variables -> load_variables equal
    bit for bit, and the trained checkpoint folded into TwoViewRefiner on
    bench.py's pair with finite flows.  Launches count for the path "train".
-13. variants: scripts/bench_corr_variants_torch.py's run (asym, nonorm and
+13. parallel: the multi-rank layer (lfr_tpu_torch.parallel, lfr_tpu_torch.dryrun)
+   on the one card.  (a) dryrun.entry(): the folded bf16 PANet's forward_sym
+   on zeros (64, 33, 33, 3) on cuda:0, which launches corr_sym.  (b)
+   dryrun_multichip(2): two spawned ranks sharing the card over gloo (dp=1,
+   mp=2) run one sharded f32 train step at full width and global batch
+   PARALLEL_TRAIN_BATCH from panet.init_variables(0), a sharded bf16 step
+   (finite), the sharded solve (192 nodes / 768 edges a component) and BA
+   (noisy 12 x 400) with their parities to one rank below 1e-3; the train
+   step's loss, gradients (gathered over mp), parameters and batch
+   statistics are held against the single-rank train_step on the card,
+   each within TRAIN_CONTROL_FACTOR times the larger of two card controls
+   (the step on inputs scaled by 1 + PERTURB N(0, 1); the step with cuDNN
+   off).  (c) dryrun_multiprocess(2): parallel.multiprocess.launch(1)
+   against launch(2) at the JAX package's sizes (512 components, 25 steps;
+   BA 40 x 4,000, 15 steps), parity below 1e-3, with the times and the
+   process-boundary efficiency.  (d) solve_file(use_mesh=True) on the match
+   graph's MatchingFile over (b)'s two ranks against one rank (both the
+   sharded route: one phase of LM_MAX_ITERATIONS steps): at most
+   SOLVE_DIFFER_SHARE of the nodes off by more than SOLVE_CPU_ATOL units,
+   as the card against the CPU in the solve phase.  One ``{"parallel":
+   ...}`` line; launches count for the path "parallel".
+14. variants: scripts/bench_corr_variants_torch.py's run (asym, nonorm and
    matmul kernels and two PyTorch calls at B=4096).
-14. the kernel list as one JSON line, the card's name and power limit, and
+15. bench_torch: bench_torch.py's run (its one JSON line: two-view
+   matches/s, FLOPs a match, the share of the card's dense bf16 peak).
+16. the kernel list as one JSON line, the card's name and power limit, and
    the result line ``{"ok": true, "device": {...}}`` last.
+
+From the build phase on, each phase starts with a ``{"probe": ...}`` line
+(lfr_tpu_torch.utils.healthprobe: a 4-byte read back, a 1024^3 bf16
+product, the allocator's memory), and a ``{"build_meter": ...}`` line
+(lfr_tpu_torch.utils.timing.BuildMeter: nvcc, g++ and cuDNN's first call of
+each conv shape, in seconds) follows the build phase and ends the run.
 
 Each path's kernel launches are counted from 0 just before it runs and read
 just after; every kernel must be launched on at least one path.
@@ -419,6 +448,11 @@ TRAIN_LOSS_DROP = 20.0
 #: (c) pairs of the validation batch (two eval chunks of 128).
 TRAIN_EVAL_PAIRS = 256
 
+#: The parallel phase: ranks sharing the card, and the train step's global
+#: batch (the train CLI's default).
+PARALLEL_RANKS = 2
+PARALLEL_TRAIN_BATCH = TRAIN_BATCH
+
 BATCH = 2048
 REPS = 3
 N_CPU = 64
@@ -426,6 +460,21 @@ N_CPU = 64
 
 def phase(name, t0):
     print(f"phase {name}: {time.perf_counter() - t0:.3f} s", flush=True)
+
+
+def begin(name):
+    """Print the health probe for phase ``name``; returns its start time."""
+    from lfr_tpu_torch.utils import healthprobe
+
+    print(json.dumps({"probe": {"phase": name, **healthprobe.probe()}}), flush=True)
+    return time.perf_counter()
+
+
+def print_build_meter(at):
+    from lfr_tpu_torch.utils.timing import BuildMeter
+
+    print(json.dumps({"build_meter": {"at": at, "seconds": BuildMeter.seconds(),
+                                      **BuildMeter.report()}}), flush=True)
 
 
 def gpu_name_and_power():
@@ -2254,6 +2303,126 @@ def train_phase(tmp):
         raise RuntimeError(f"train: {line}")
 
 
+def _card_step(variables, data, cudnn=True):
+    """One f32 Adam step on the card at dryrun.TRAIN_LR: (loss, variables
+    after (flat), gradients by torch name); ``cudnn=False`` takes
+    PyTorch's own CUDA convolutions (another summation order)."""
+    import torch
+
+    from lfr_tpu_torch import dryrun
+    from lfr_tpu_torch.models import panet, train
+
+    with torch.backends.cudnn.flags(enabled=cudnn, benchmark=False, deterministic=False,
+                                    allow_tf32=False):
+        model = train.load_model(variables, torch.float32, "cuda").train()
+        optimizer, _ = train.make_optimizer(model, dryrun.TRAIN_LR)
+        loss = float(train.train_step(model, optimizer,
+                                      *(torch.from_numpy(x).cuda() for x in data)))
+    grads = {k: p.grad.float().cpu().numpy() for k, p in model.named_parameters()}
+    return loss, _flat(panet.to_jax_variables(model)), grads
+
+
+def _grad_relative(a, b, keys):
+    num = sum(float(np.sum((a[k].astype(np.float64) - b[k]) ** 2)) for k in keys)
+    return (num / sum(float(np.sum(b[k].astype(np.float64) ** 2)) for k in keys)) ** 0.5
+
+
+def _node_displacements(path):
+    from lfr_tpu_torch.io import protos
+
+    sols = protos.read_solution_file(path)
+    return ([(s.image_name, s.feature_indices.tobytes()) for s in sols],
+            np.concatenate([s.displacements for s in sols]))
+
+
+def parallel_phase(matches_file, tmp):
+    """(a) entry() on cuda:0; (b) dryrun_multichip on ranks sharing the card,
+    its train step held to the single-rank step within card controls; (c)
+    dryrun_multiprocess; (d) solve_file over ranks against one rank."""
+    import torch
+
+    from lfr_tpu_torch import dryrun
+    from lfr_tpu_torch.models import panet
+    from lfr_tpu_torch.solver import solve
+
+    line = {}
+    # (a) the one-device dry run.
+    fn, args = dryrun.entry()
+    d12, d21 = fn(*args)
+    torch.cuda.synchronize()
+    line["entry"] = {"time_ms": time_ms(lambda: fn(*args), runs=5, warmup=1),
+                     "shapes": [list(d12.shape), list(d21.shape)],
+                     "finite": bool(torch.isfinite(d12).all() and torch.isfinite(d21).all())}
+    if line["entry"]["shapes"] != [[64, 2], [64, 2]] or not line["entry"]["finite"]:
+        raise RuntimeError(f"parallel: entry() gave {line['entry']}")
+    torch.cuda.empty_cache()
+
+    # (b) ranks sharing the card; the train step against one rank.  The
+    # ranks also solve the match graph's file for (d).
+    ranks_path = os.path.join(tmp, "solution-ranks.pb")
+    t0 = time.perf_counter()
+    report = dryrun.dryrun_multichip(PARALLEL_RANKS, batch=PARALLEL_TRAIN_BATCH,
+                                     matches_file=matches_file, solution_file=ranks_path)
+    multichip_s = time.perf_counter() - t0
+    ranks_solve = report.pop("solve_file")
+    variables = panet.init_variables(0)
+    data = dryrun.train_batch(PARALLEL_TRAIN_BATCH)
+    rng = np.random.default_rng(5)
+    perturbed = tuple((x * (1 + PERTURB * rng.standard_normal(x.shape))).astype(np.float32)
+                      if i < 2 else x for i, x in enumerate(data))
+    one_loss, one, one_grads = _card_step(variables, data)
+    pert_loss, pert, pert_grads = _card_step(variables, perturbed)
+    route_loss, route, route_grads = _card_step(variables, data, cudnn=False)
+    got, got_grads = _flat(report.pop("train_variables")), report.pop("train_grads")
+    start = _flat(variables)
+    check = {"loss": {"ranks": report["train_loss"], "one_rank": one_loss,
+                      "diff": abs(report["train_loss"] - one_loss),
+                      "control": max(abs(pert_loss - one_loss), abs(route_loss - one_loss))}}
+    bias = [f"refine.conv{i}.bias" for i in range(4)]
+    for name, keys in (("grads", [k for k in one_grads if k not in bias]), ("grads_bias", bias)):
+        check[name] = {"diff": _grad_relative(got_grads, one_grads, keys),
+                       "control": max(_grad_relative(pert_grads, one_grads, keys),
+                                      _grad_relative(route_grads, one_grads, keys))}
+    for name, keys in _train_groups(one).items():
+        check[name] = {"diff": _relative(got, one, keys, start),
+                       "control": max(_relative(pert, one, keys, start),
+                                      _relative(route, one, keys, start))}
+    line["multichip"] = {**report, "seconds": multichip_s, "train_check": check,
+                         "factor": TRAIN_CONTROL_FACTOR}
+    print(json.dumps({"parallel_multichip": line["multichip"]}), flush=True)
+    for name, value in check.items():
+        if not value["diff"] <= TRAIN_CONTROL_FACTOR * value["control"]:
+            raise RuntimeError(f"parallel: sharded train step {name} {value} beyond "
+                               f"{TRAIN_CONTROL_FACTOR} x the control")
+
+    # (c) worker processes against one process.
+    t0 = time.perf_counter()
+    line["multiprocess"] = {**dryrun.dryrun_multiprocess(PARALLEL_RANKS),
+                            "seconds": time.perf_counter() - t0}
+
+    # (d) the solver's sharded route over the ranks (in (b)) against one rank.
+    one_path = os.path.join(tmp, "solution-one-rank.pb")
+    spans = {}
+    t0 = time.perf_counter()
+    solve.solve_file(matches_file, one_path, verbose=False, sub_spans=spans, use_mesh=True)
+    one_s = time.perf_counter() - t0
+    layout, x_ranks = _node_displacements(ranks_path)
+    layout_one, x_one = _node_displacements(one_path)
+    diff = np.abs(x_ranks - x_one).max(axis=1)
+    line["solve_file"] = {
+        "matches_file_edges": spans["n_edges"], "nodes": spans["n_nodes"],
+        "rank0_seconds": ranks_solve["seconds"], "one_rank_seconds": one_s,
+        "rank0_sub_spans": ranks_solve["sub_spans"],
+        "one_rank_sub_spans": spans, "max_abs_units": float(diff.max()),
+        "nodes_beyond_atol": int((diff > SOLVE_CPU_ATOL).sum()),
+        "layout_equal": layout == layout_one}
+    print(json.dumps({"parallel": line}), flush=True)
+    if not (layout == layout_one
+            and (diff > SOLVE_CPU_ATOL).sum() <= SOLVE_DIFFER_SHARE * diff.size):
+        raise RuntimeError(f"parallel: solve_file over ranks vs one rank {line['solve_file']}")
+    return line
+
+
 def variants_phase():
     """scripts/bench_corr_variants_torch.py's path at B=4096."""
     sys.path.insert(0, os.path.join(HERE, "scripts"))
@@ -2293,7 +2462,7 @@ def main() -> int:
     )
     phase("device", t0)
 
-    t0 = time.perf_counter()
+    t0 = begin("build")
     from concurrent.futures import ThreadPoolExecutor
 
     from lfr_tpu_torch.ops import host_build
@@ -2310,71 +2479,86 @@ def main() -> int:
         print(log.strip(), flush=True)
     host_build.library()
     phase("build", t0)
+    print_build_meter("build")
 
-    t0 = time.perf_counter()
+    t0 = begin("jpeg")
     jpeg_phase()
     phase("jpeg", t0)
 
-    t0 = time.perf_counter()
+    t0 = begin("kernels")
     rows = kernel_phase(correlation)
     nn_err = nn_kernel_check(nn_dist)
     phase("kernels", t0)
 
-    t0 = time.perf_counter()
+    t0 = begin("conv_rounding")
     conv_rounding_phase()
     phase("conv_rounding", t0)
 
     paths = {}
-    t0 = time.perf_counter()
+    t0 = begin("slice")
     paths["two_view"], _ = slice_phase()
     phase("slice", t0)
 
     tmp = tempfile.mkdtemp(prefix="lfr_match_graph_")
     try:
-        t0 = time.perf_counter()
+        t0 = begin("match_graph")
         paths["match_graph"], matches_file = match_graph_phase(tmp)
         phase("match_graph", t0)
 
-        t0 = time.perf_counter()
+        t0 = begin("solve")
         solve_phase(matches_file, tmp)
         phase("solve", t0)
 
-        t0 = time.perf_counter()
+        t0 = begin("triangulation")
         reset_launches()
         triangulation_phase(tmp)
         paths["triangulation"] = read_launches()
         phase("triangulation", t0)
 
-        t0 = time.perf_counter()
+        t0 = begin("sfm")
         reset_launches()
         sfm_phase(tmp)
         paths["sfm"] = read_launches()
         phase("sfm", t0)
 
-        t0 = time.perf_counter()
+        t0 = begin("benchmark_eth")
         paths["benchmark_eth"], nn_row = benchmark_eth_phase(nn_dist, tmp)
         nn_row["max_abs_err"] = max(nn_err, nn_row["max_abs_err"])
         rows.append(nn_row)
         phase("benchmark_eth", t0)
 
-        t0 = time.perf_counter()
+        t0 = begin("extract")
         paths["extract_eth"], nn_err = extract_phase(nn_dist, os.path.join(tmp, "eth_scene"), tmp)
         nn_row["max_abs_err"] = max(nn_err, nn_row["max_abs_err"])
         phase("extract", t0)
 
-        t0 = time.perf_counter()
+        t0 = begin("train")
         reset_launches()
         train_phase(tmp)
         paths["train"] = read_launches()
         if not paths["train"]["corr_asym"] > 0:
             raise RuntimeError(f"train: corr_asym was not launched ({paths['train']})")
         phase("train", t0)
+
+        t0 = begin("parallel")
+        reset_launches()
+        parallel_phase(matches_file, tmp)
+        paths["parallel"] = read_launches()
+        if not paths["parallel"]["corr_sym"] > 0:
+            raise RuntimeError(f"parallel: corr_sym was not launched ({paths['parallel']})")
+        phase("parallel", t0)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    t0 = time.perf_counter()
+    t0 = begin("variants")
     paths["variants"] = variants_phase()
     phase("variants", t0)
+
+    t0 = begin("bench_torch")
+    import bench_torch
+
+    bench_torch.main()
+    phase("bench_torch", t0)
 
     for row in rows:
         row["launches_by_path"] = {path: counts[row["name"]] for path, counts in paths.items()}
@@ -2384,6 +2568,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}))
+    print_build_meter("end")
     print(f"total: {time.perf_counter() - t_all:.3f} s")
     print(card)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

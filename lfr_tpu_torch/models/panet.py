@@ -33,6 +33,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.correlation import corr_views, correlation_reference
+from ..utils.timing import BuildMeter
 
 #: ImageNet normalisation.
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -96,7 +97,9 @@ class FoldedConv(nn.Module):
     for each of the main path's conv shapes (PERF.md, Findings).  A shape
     cuDNN refuses raises.  Elsewhere (the CPU, f32) the conv runs on the
     operands widened to f32 and ``torch.add`` of the f32 bias writes t
-    directly, so the only rounding is that store; ReLU commutes with it."""
+    directly, so the only rounding is that store; ReLU commutes with it.
+    The first call of each shape on the card is timed into BuildMeter's
+    ``cudnn_first_call``."""
 
     def __init__(self, cin: int, cout: int, kernel: int, padding: int):
         super().__init__()
@@ -111,7 +114,9 @@ class FoldedConv(nn.Module):
                 x, w = pad_channels(x), pad_channels(w)
             p = self.padding
             w = w.contiguous(memory_format=torch.channels_last)
-            return torch.cudnn_convolution_relu(x, w, self.bias, (1, 1), (p, p), (1, 1), 1)
+            return BuildMeter.first_call(
+                ("FoldedConv", tuple(x.shape), tuple(w.shape), p), x.device,
+                lambda: torch.cudnn_convolution_relu(x, w, self.bias, (1, 1), (p, p), (1, 1), 1))
         y = F.conv2d(x.float(), w.float(), padding=self.padding)
         out = torch.empty_like(y, dtype=x.dtype)
         return torch.add(y, self.bias.view(1, -1, 1, 1), out=out).relu_()
@@ -121,10 +126,14 @@ class Conv(nn.Conv2d):
     """flax ``nn.Conv(dtype=t)`` with t the input's type: the f32 parameters
     are cast to t, the conv is summed in f32 and written in t, then the bias
     is added in t (two roundings where t is bf16).  Gradients reach the f32
-    parameters through the casts."""
+    parameters through the casts.  The first forward of each shape on a
+    CUDA device is timed into BuildMeter's ``cudnn_first_call``."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv2d(x, self.weight.to(x.dtype), None, self.stride, self.padding)
+        w = self.weight.to(x.dtype)
+        y = BuildMeter.first_call(
+            ("Conv", tuple(x.shape), tuple(w.shape), x.dtype, self.padding), x.device,
+            lambda: F.conv2d(x, w, None, self.stride, self.padding))
         return y + self.bias.to(x.dtype).view(1, -1, 1, 1)
 
 
@@ -143,11 +152,16 @@ class BatchNorm(nn.BatchNorm2d):
     def __init__(self, features: int):
         super().__init__(features, eps=1e-5)
 
+    def moments(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(E[x], E[x^2]) per channel over the batch and the positions
+        (``lfr_tpu_torch.parallel.sharded`` takes them over the ranks of dp)."""
+        return x.mean((0, 2, 3)), (x * x).mean((0, 2, 3))
+
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         x = x.float()
         if train:
-            mean = x.mean((0, 2, 3))
-            var = ((x * x).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+            mean, mean_sq = self.moments(x)
+            var = (mean_sq - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 m = BN_MOMENTUM
                 self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)

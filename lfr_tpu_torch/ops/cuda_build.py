@@ -23,6 +23,8 @@ import subprocess
 import time
 from typing import Dict, Tuple
 
+from ..utils.timing import BuildMeter
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -97,6 +99,7 @@ def build(name: str = "correlation") -> Tuple[str, float, str]:
     t0 = time.perf_counter()
     proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, src], capture_output=True, text=True)
     seconds = time.perf_counter() - t0
+    BuildMeter.add("nvcc", seconds)
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src} (exit {proc.returncode}):\n{log}")

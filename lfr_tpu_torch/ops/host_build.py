@@ -19,6 +19,7 @@ import subprocess
 import time
 from typing import Optional, Tuple
 
+from ..utils.timing import BuildMeter
 from .cuda_build import BUILD_DIR, CSRC
 
 SOURCE = os.path.join(CSRC, "lfr_native.cc")
@@ -66,6 +67,7 @@ def build() -> Tuple[str, float, str]:
     t0 = time.perf_counter()
     proc = subprocess.run([gxx_path(), *GXX_FLAGS, "-o", tmp, SOURCE], capture_output=True, text=True)
     seconds = time.perf_counter() - t0
+    BuildMeter.add("g++", seconds)
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise RuntimeError(f"g++ failed on {SOURCE} (exit {proc.returncode}):\n{log}")

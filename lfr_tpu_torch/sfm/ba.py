@@ -191,14 +191,17 @@ def _group_blocks(Jc, Jp, idx, valid):
 
 def schur_step(
     Rc, tc, fsc, Xc, lam, obs_cam, obs_pt, obs_uv, obs_focal, free, pt_obs_idx,
-    pt_obs_valid, n_cameras: int, tie=None,
+    pt_obs_valid, n_cameras: int, tie=None, reduce=None,
 ):
     """One damped Gauss-Newton step through the Schur-reduced camera system.
 
     Returns (dc (C, CAM_DOF), dX (P, 3)); with ``lam = 0`` an undamped GN
     step.  ``tie``: optional (CAM_DOF*C, K) parameter-tying matrix: the
     solve runs in the reduced space z with dc = tie @ z (shared focal
-    scales).
+    scales).  ``reduce``: optional sum of the camera system's parts over
+    the ranks that hold the other points (``lfr_tpu_torch.parallel``); the
+    camera solve then runs on the sums, the back-substitution on this
+    rank's points.
 
     The point axis runs in chunks (at most POINT_CHUNK points, fewer where
     a chunk's one-hot would pass CHUNK_ELEMENTS).  Per chunk, each point's
@@ -208,78 +211,106 @@ def schur_step(
     gradient come from the same one-hot.  No scatter-add: the same bits on
     every run.
     """
+    with strict_f32():
+        S, B, rhs_pt, blocks = _schur_assemble(
+            Rc, tc, fsc, Xc, lam, obs_cam, obs_pt, obs_uv, obs_focal, free, pt_obs_idx,
+            pt_obs_valid, n_cameras)
+        if reduce is not None:
+            S, B, rhs_pt = reduce(S, B, rhs_pt)
+        dc = _camera_solve(S, B, rhs_pt, lam, free, n_cameras, tie)
+        dX = _back_substitute(dc, blocks, obs_cam, pt_obs_idx, pt_obs_valid)
+    return dc, dX if dX is not None else Xc.new_zeros(0, 3)
+
+
+def _schur_assemble(
+    Rc, tc, fsc, Xc, lam, obs_cam, obs_pt, obs_uv, obs_focal, free, pt_obs_idx,
+    pt_obs_valid, n_cameras: int,
+):
+    """The camera system's parts over this set of points: S (C·d, C·d)
+    without the camera blocks, B (C, d·d + d) the camera blocks and
+    gradients, rhs_pt (C·d, 1); and what the back-substitution needs."""
     d = CAM_DOF
     dt, dev = Xc.dtype, Xc.device
     n_c = n_cameras
-    with strict_f32():
-        r, Jc, Jp, w = obs_jacobians(Rc, tc, fsc, Xc, obs_cam, obs_pt, obs_uv, obs_focal)
-        sw = w.sqrt()
-        Jc = Jc * free[obs_cam][:, None, :] * sw[:, None, None]
-        Jp = Jp * sw[:, None, None]
-        rw = r * sw[:, None]
+    r, Jc, Jp, w = obs_jacobians(Rc, tc, fsc, Xc, obs_cam, obs_pt, obs_uv, obs_focal)
+    sw = w.sqrt()
+    Jc = Jc * free[obs_cam][:, None, :] * sw[:, None, None]
+    Jp = Jp * sw[:, None, None]
+    rw = r * sw[:, None]
 
-        n_p, v = pt_obs_idx.shape
-        pc = _point_chunk(n_p, v, n_c)
-        cams = torch.arange(n_c, device=dev)
-        S = torch.zeros(n_c * d, n_c * d, dtype=dt, device=dev)
-        B = torch.zeros(n_c, d * d + d, dtype=dt, device=dev)   # [B, g_c] per camera
-        rhs_pt = torch.zeros(n_c * d, 1, dtype=dt, device=dev)
-        Cp_inv_all, g_p_all = [], []
-        eye3 = torch.eye(3, dtype=dt, device=dev)
-        for s in range(0, n_p, pc):
-            idx, valid = pt_obs_idx[s : s + pc], pt_obs_valid[s : s + pc]
-            k = idx.shape[0]
-            Jp_g, Jc_g, E = _group_blocks(Jc, Jp, idx, valid)
-            onehot = ((obs_cam[idx.clamp_min(0)][..., None] == cams) & valid[..., None]).to(dt)
-            r_g = rw[idx.clamp_min(0)] * valid[..., None].to(dt)
-            # Camera blocks and gradient of the chunk's observations.
-            JcTJc = (Jc_g.transpose(-1, -2) @ Jc_g).reshape(k * v, d * d)
-            JcTr = (Jc_g.transpose(-1, -2) @ r_g[..., None])[..., 0].reshape(k * v, d)
-            B = B + onehot.reshape(k * v, n_c).T @ torch.cat([JcTJc, JcTr], -1)
-            # Point blocks (damped) and their inverses.
-            Cp = (Jp_g.transpose(-1, -2) @ Jp_g).sum(1)
-            g_p = (Jp_g.transpose(-1, -2) @ r_g[..., None])[..., 0].sum(1)
-            Cp = _damp(Cp, lam)
-            Cp_inv = torch.linalg.inv_ex(Cp + 1e-9 * eye3)[0]
-            ECi = E @ Cp_inv[:, None]
-            # Per-camera aggregation, then the pairing GEMM.
-            oh_t = onehot.transpose(1, 2)                                # (k, C, V)
-            G = torch.bmm(oh_t, ECi.reshape(k, v, d * 3)).reshape(k, n_c, d, 3)
-            H = torch.bmm(oh_t, E.reshape(k, v, d * 3)).reshape(k, n_c, d, 3)
-            G_flat = G.permute(1, 2, 0, 3).reshape(n_c * d, k * 3)
-            H_flat = H.permute(1, 2, 0, 3).reshape(n_c * d, k * 3)
-            S = S - G_flat @ H_flat.T
-            # rhs: sum_v ECi_v g_p over each camera's slots = G g_p.
-            rhs_pt = rhs_pt + G_flat @ g_p.reshape(k * 3, 1)
-            Cp_inv_all.append(Cp_inv)
-            g_p_all.append(g_p)
+    n_p, v = pt_obs_idx.shape
+    pc = _point_chunk(n_p, v, n_c)
+    cams = torch.arange(n_c, device=dev)
+    S = torch.zeros(n_c * d, n_c * d, dtype=dt, device=dev)
+    B = torch.zeros(n_c, d * d + d, dtype=dt, device=dev)   # [B, g_c] per camera
+    rhs_pt = torch.zeros(n_c * d, 1, dtype=dt, device=dev)
+    Cp_inv_all, g_p_all = [], []
+    eye3 = torch.eye(3, dtype=dt, device=dev)
+    for s in range(0, n_p, pc):
+        idx, valid = pt_obs_idx[s : s + pc], pt_obs_valid[s : s + pc]
+        k = idx.shape[0]
+        Jp_g, Jc_g, E = _group_blocks(Jc, Jp, idx, valid)
+        onehot = ((obs_cam[idx.clamp_min(0)][..., None] == cams) & valid[..., None]).to(dt)
+        r_g = rw[idx.clamp_min(0)] * valid[..., None].to(dt)
+        # Camera blocks and gradient of the chunk's observations.
+        JcTJc = (Jc_g.transpose(-1, -2) @ Jc_g).reshape(k * v, d * d)
+        JcTr = (Jc_g.transpose(-1, -2) @ r_g[..., None])[..., 0].reshape(k * v, d)
+        B = B + onehot.reshape(k * v, n_c).T @ torch.cat([JcTJc, JcTr], -1)
+        # Point blocks (damped) and their inverses.
+        Cp = (Jp_g.transpose(-1, -2) @ Jp_g).sum(1)
+        g_p = (Jp_g.transpose(-1, -2) @ r_g[..., None])[..., 0].sum(1)
+        Cp = _damp(Cp, lam)
+        Cp_inv = torch.linalg.inv_ex(Cp + 1e-9 * eye3)[0]
+        ECi = E @ Cp_inv[:, None]
+        # Per-camera aggregation, then the pairing GEMM.
+        oh_t = onehot.transpose(1, 2)                                # (k, C, V)
+        G = torch.bmm(oh_t, ECi.reshape(k, v, d * 3)).reshape(k, n_c, d, 3)
+        H = torch.bmm(oh_t, E.reshape(k, v, d * 3)).reshape(k, n_c, d, 3)
+        G_flat = G.permute(1, 2, 0, 3).reshape(n_c * d, k * 3)
+        H_flat = H.permute(1, 2, 0, 3).reshape(n_c * d, k * 3)
+        S = S - G_flat @ H_flat.T
+        # rhs: sum_v ECi_v g_p over each camera's slots = G g_p.
+        rhs_pt = rhs_pt + G_flat @ g_p.reshape(k * 3, 1)
+        Cp_inv_all.append(Cp_inv)
+        g_p_all.append(g_p)
+    return S, B, rhs_pt, (Jc, Jp, pc, Cp_inv_all, g_p_all)
 
-        Bc = _damp(B[:, : d * d].reshape(n_c, d, d), lam)
-        rhs = B[:, d * d :] - rhs_pt.reshape(n_c, d)
-        # Add the camera blocks to the diagonal blocks of S.
-        S = S.reshape(n_c, d, n_c, d)
-        S[cams, :, cams, :] = S[cams, :, cams, :] + Bc
-        Sd = S.reshape(n_c * d, n_c * d)
-        fmask = free.reshape(-1)
-        Sd = Sd * fmask[:, None] * fmask[None, :] + torch.diag(1.0 - fmask)
-        rhs_flat = (-rhs.reshape(-1)) * fmask
-        if tie is None:
-            dc = _cho_solve(Sd, rhs_flat).reshape(n_c, d)
-        else:
-            A = tie.T @ Sd @ tie
-            A = A + 1e-12 * torch.eye(A.shape[0], dtype=dt, device=dev)
-            z = _cho_solve(A, tie.T @ rhs_flat)
-            dc = (tie @ z).reshape(n_c, d)
 
-        # Back-substitute the points: dX = C^-1 (-g_p - Eᵀ dc).
-        dX = []
-        for j, s in enumerate(range(0, n_p, pc)):
-            idx, valid = pt_obs_idx[s : s + pc], pt_obs_valid[s : s + pc]
-            _, _, E = _group_blocks(Jc, Jp, idx, valid)
-            dc_g = dc[obs_cam[idx.clamp_min(0)]] * valid[..., None].to(dt)
-            ET_dc = (E.transpose(-1, -2) @ dc_g[..., None])[..., 0].sum(1)
-            dX.append((Cp_inv_all[j] @ (-g_p_all[j] - ET_dc)[..., None])[..., 0])
-    return dc, torch.cat(dX) if dX else Xc.new_zeros(0, 3)
+def _camera_solve(S, B, rhs_pt, lam, free, n_cameras: int, tie=None):
+    """dc (C, CAM_DOF) from the assembled (and reduced) camera system."""
+    d = CAM_DOF
+    n_c = n_cameras
+    dt, dev = S.dtype, S.device
+    cams = torch.arange(n_c, device=dev)
+    Bc = _damp(B[:, : d * d].reshape(n_c, d, d), lam)
+    rhs = B[:, d * d :] - rhs_pt.reshape(n_c, d)
+    # Add the camera blocks to the diagonal blocks of S.
+    S = S.reshape(n_c, d, n_c, d)
+    S[cams, :, cams, :] = S[cams, :, cams, :] + Bc
+    Sd = S.reshape(n_c * d, n_c * d)
+    fmask = free.reshape(-1)
+    Sd = Sd * fmask[:, None] * fmask[None, :] + torch.diag(1.0 - fmask)
+    rhs_flat = (-rhs.reshape(-1)) * fmask
+    if tie is None:
+        return _cho_solve(Sd, rhs_flat).reshape(n_c, d)
+    A = tie.T @ Sd @ tie
+    A = A + 1e-12 * torch.eye(A.shape[0], dtype=dt, device=dev)
+    z = _cho_solve(A, tie.T @ rhs_flat)
+    return (tie @ z).reshape(n_c, d)
+
+
+def _back_substitute(dc, blocks, obs_cam, pt_obs_idx, pt_obs_valid):
+    """dX = C^-1 (-g_p - Eᵀ dc) over this set's points (None: no points)."""
+    Jc, Jp, pc, Cp_inv_all, g_p_all = blocks
+    dt = dc.dtype
+    dX = []
+    for j, s in enumerate(range(0, pt_obs_idx.shape[0], pc)):
+        idx, valid = pt_obs_idx[s : s + pc], pt_obs_valid[s : s + pc]
+        _, _, E = _group_blocks(Jc, Jp, idx, valid)
+        dc_g = dc[obs_cam[idx.clamp_min(0)]] * valid[..., None].to(dt)
+        ET_dc = (E.transpose(-1, -2) @ dc_g[..., None])[..., 0].sum(1)
+        dX.append((Cp_inv_all[j] @ (-g_p_all[j] - ET_dc)[..., None])[..., 0])
+    return torch.cat(dX) if dX else None
 
 
 def _cho_solve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -303,7 +334,7 @@ class BAResult:
 
 def ba_iterate(
     R, t, fscale, points, obs_cam, obs_pt, obs_uv, obs_focal, free, pt_obs_idx,
-    pt_obs_valid, n_cameras: int, iterations: int = 20, tie=None, tol=1e-6,
+    pt_obs_valid, n_cameras: int, iterations: int = 20, tie=None, tol=1e-6, reduce=None,
 ) -> BAResult:
     """The LM loop, as the JAX package's ``while_loop`` computes it.
 
@@ -311,17 +342,27 @@ def ba_iterate(
     ``~done``, so the steps it runs past ``done`` change nothing; it reads
     ``done`` every CHECK_EVERY steps.  ``tol``: relative cost-decrease
     stop.  ``BAResult.iterations`` counts the steps JAX would run,
-    ``steps`` those run here."""
+    ``steps`` those run here.  ``reduce``: optional sum over the ranks that
+    hold the other points (``lfr_tpu_torch.parallel.sharded.run_ba_sharded``)
+    of the costs and the camera system, so that every rank takes the same
+    branch on the global cost."""
     dt, dev = points.dtype, points.device
+    if reduce is None:
+        reduce_cost = None
+    else:
+        def reduce_cost(c):
+            return reduce(c)[0]
     lam = torch.tensor(1e-3, dtype=dt, device=dev)
     cost = _cost(R, t, fscale, points, obs_cam, obs_pt, obs_uv, obs_focal)
+    if reduce_cost is not None:
+        cost = reduce_cost(cost)
     done = torch.tensor(False, device=dev)
     it = torch.tensor(0, device=dev)
     step = 0
     while step < iterations:
         dc, dX = schur_step(
             R, t, fscale, points, lam, obs_cam, obs_pt, obs_uv, obs_focal, free,
-            pt_obs_idx, pt_obs_valid, n_cameras, tie=tie,
+            pt_obs_idx, pt_obs_valid, n_cameras, tie=tie, reduce=reduce,
         )
         dc = dc * free
         with strict_f32():
@@ -330,6 +371,8 @@ def ba_iterate(
         fs_new = fscale + dc[:, 6]
         X_new = points + dX
         new_cost = _cost(R_new, t_new, fs_new, X_new, obs_cam, obs_pt, obs_uv, obs_focal)
+        if reduce_cost is not None:
+            new_cost = reduce_cost(new_cost)
         finite = torch.isfinite(new_cost)
         accept = finite & (new_cost < cost)
         take = accept & ~done

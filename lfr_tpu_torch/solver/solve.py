@@ -17,6 +17,13 @@ straggler batch runs at its own size: lanes are independent.
 Streaming: a worker thread packs batch k+1 while the device solves batch k,
 and every batch's first phase is dispatched before any position is read
 back.
+
+Sharded route (``use_mesh``; by default when a process group of more than
+one rank is initialised, as the JAX package shards when it sees more than
+one device): every rank builds the same graph, tracks and components, and
+each bucket is solved by ``parallel.sharded.sharded_lm`` over every rank at
+``max_iter`` in one phase, with no stragglers (solve.py:95-100 of the JAX
+package); rank 0 logs and writes the SolutionFile.
 """
 
 from __future__ import annotations
@@ -48,6 +55,32 @@ def _next_timed(it):
     t0 = time.perf_counter()
     item = next(it, None)
     return item, time.perf_counter() - t0
+
+
+def _solve_positions_sharded(graph, tracks, component_idx, max_iter, mesh, accum, counters):
+    """(N, 2) f32 positions of every node, each bucket solved over the mesh."""
+    from ..parallel.sharded import sharded_lm
+
+    positions = np.zeros((graph.num_nodes, 2), dtype=np.float32)
+    n_batches = iterations_max = lm_steps = 0
+    packed = buckets_mod.iter_packed(graph, tracks, component_idx)
+    while True:
+        item, seconds = _next_timed(packed)
+        accum.add("pack", seconds)
+        if item is None:
+            break
+        batch, node_map = item
+        with accum.span("lm_sharded"):
+            solved, iterations, steps = sharded_lm(batch, mesh, max_iter)
+        valid = node_map >= 0
+        positions[node_map[valid]] = solved[valid]
+        if valid.any():
+            iterations_max = max(iterations_max, int(iterations[valid.any(axis=1)].max()))
+        n_batches += 1
+        lm_steps += steps
+    counters.update(n_batches=n_batches, n_stragglers=0, iterations_max=iterations_max,
+                    lm_steps=lm_steps, mesh_size=mesh.size)
+    return positions
 
 
 def _solve_positions(graph, tracks, component_idx, max_iter, dev, accum, counters):
@@ -127,7 +160,7 @@ def _image_solutions(graph, positions) -> List[protos.ImageSolution]:
     return solutions
 
 
-def _solve(pairs, banned_images, max_iter, dev, log, accum, counters):
+def _solve(pairs, banned_images, max_iter, dev, log, accum, counters, mesh=None):
     if max_iter is None:
         max_iter = LM_MAX_ITERATIONS
     with accum.span("graph"):
@@ -152,7 +185,11 @@ def _solve(pairs, banned_images, max_iter, dev, log, accum, counters):
         log(f"max component size: {int(np.bincount(component_idx).max())}")
 
     t1 = time.perf_counter()
-    positions = _solve_positions(graph, tracks, component_idx, max_iter, dev, accum, counters)
+    if mesh is None:
+        positions = _solve_positions(graph, tracks, component_idx, max_iter, dev, accum, counters)
+    else:
+        positions = _solve_positions_sharded(graph, tracks, component_idx, max_iter, mesh, accum,
+                                             counters)
     t2 = time.perf_counter()
     accum.add("lm_wall", t2 - t1)
     if counters["n_stragglers"]:
@@ -176,6 +213,20 @@ def _logger(verbose: bool):
     return log
 
 
+def _mesh(use_mesh: Optional[bool], device):
+    """The mesh of the sharded route, or None: by default when a process
+    group of more than one rank is initialised."""
+    import torch.distributed as dist
+
+    if use_mesh is None:
+        use_mesh = dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1
+    if not use_mesh:
+        return None
+    from ..parallel.mesh import make_mesh
+
+    return make_mesh(device=device)
+
+
 def _report(sub_spans: Optional[Dict], accum: Accum, counters: Dict, t0: float) -> None:
     accum.add("stage_total", time.perf_counter() - t0)
     if sub_spans is not None:
@@ -190,8 +241,13 @@ def solve_matches(
     device="cuda",
     verbose: bool = True,
     sub_spans: Optional[Dict] = None,
+    use_mesh: Optional[bool] = None,
 ) -> List[protos.ImageSolution]:
     """Full multi-view optimization over decoded match pairs.
+
+    ``use_mesh``: solve every bucket over all ranks of the process group
+    (``lfr_tpu_torch.parallel``); by default when a process group of more
+    than one rank is initialised.  Every rank must call it on the same pairs.
 
     ``sub_spans``, when given, receives the seconds of each stage (``graph``,
     ``tracks``, ``partition``, ``pack`` (on the packing thread),
@@ -200,12 +256,16 @@ def solve_matches(
     ``n_nodes``, ``n_edges``, ``n_components``, ``n_batches``,
     ``n_stragglers``, ``iterations_max``, ``lm_steps`` (LM steps the batches
     ran, phase 1 and stragglers) and ``n_outside`` (nodes with a coordinate
-    beyond 0.5).
+    beyond 0.5); the sharded route has ``lm_sharded`` (this rank's LM and
+    the gathers) for the LM spans, ``lm_steps`` of this rank, and
+    ``mesh_size``.
     """
     t0 = time.perf_counter()
     dev = resolve_device(device)
+    mesh = _mesh(use_mesh, device)
     accum, counters = Accum(), {}
-    solutions = _solve(pairs, banned_images, max_iter, dev, _logger(verbose), accum, counters)
+    log = _logger(verbose and (mesh is None or mesh.rank == 0))
+    solutions = _solve(pairs, banned_images, max_iter, dev, log, accum, counters, mesh)
     _report(sub_spans, accum, counters, t0)
     return solutions
 
@@ -217,17 +277,22 @@ def solve_file(
     device="cuda",
     verbose: bool = True,
     sub_spans: Optional[Dict] = None,
+    use_mesh: Optional[bool] = None,
 ) -> None:
     """:func:`solve_matches` from a MatchingFile (or its ``.part.N`` chunks)
-    to a SolutionFile; ``sub_spans`` also gets ``read`` and ``write``."""
+    to a SolutionFile; ``sub_spans`` also gets ``read`` and ``write``.  On
+    the sharded route every rank reads the file and rank 0 writes."""
     t0 = time.perf_counter()
     dev = resolve_device(device)
+    mesh = _mesh(use_mesh, device)
     accum, counters = Accum(), {}
     with accum.span("read"):
         pairs = protos.read_matching_file(matches_file)
-    solutions = _solve(pairs, banned_images, None, dev, _logger(verbose), accum, counters)
-    with accum.span("write"):
-        protos.write_solution_file(output_file, solutions)
+    log = _logger(verbose and (mesh is None or mesh.rank == 0))
+    solutions = _solve(pairs, banned_images, None, dev, log, accum, counters, mesh)
+    if mesh is None or mesh.rank == 0:
+        with accum.span("write"):
+            protos.write_solution_file(output_file, solutions)
     _report(sub_spans, accum, counters, t0)
 
 

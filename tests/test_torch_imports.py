@@ -21,6 +21,9 @@ SCRIPTS = {
     "profile_torch_solve": ROOT / "scripts" / "profile_torch_solve.py",
     "profile_torch_triangulation": ROOT / "scripts" / "profile_torch_triangulation.py",
     "train_torch_loss_drop": ROOT / "scripts" / "train_torch_loss_drop.py",
+    "bench_torch": ROOT / "bench_torch.py",
+    "probe_torch_collectives": ROOT / "scripts" / "probe_torch_collectives.py",
+    "probe_torch_first_call": ROOT / "scripts" / "probe_torch_first_call.py",
 }
 
 
@@ -46,11 +49,14 @@ def test_importing_every_module_loads_no_jax():
                    "__main__", "ops.sift", "ops.doh", "ops.surf",
                    "pipelines.extract_features", "sfm.ba", "sfm.pnp", "sfm.mapper",
                    "pipelines.reconstruction", "ops.host_build", "solver.native",
-                   "models.train", "models.torch_import", "utils.corpus"):
+                   "models.train", "models.torch_import", "utils.corpus",
+                   "parallel.distributed", "parallel.mesh", "parallel.sharded",
+                   "parallel.multiprocess", "utils.healthprobe", "utils.timing", "dryrun"):
         assert f"lfr_tpu_torch.{module}" in names
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {str(ROOT / 'scripts')!r})\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
         f"for name in {names!r}:\n"
         "    importlib.import_module(name)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"

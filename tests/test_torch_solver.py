@@ -390,7 +390,9 @@ def matches_file(tmp_path_factory):
 def jax_solution(matches_file, tmp_path_factory):
     """``jax_solve.solve_file``'s body with ``use_mesh=False``: under
     tests/conftest.py's 8 virtual devices its default is the sharded path,
-    which runs one 100-step phase.  The port has no mesh path (ROADMAP)."""
+    which runs one 100-step phase.  The port's default without a process
+    group is its two-phase path; tests/test_torch_parallel.py holds its
+    sharded path against JAX's."""
     out = tmp_path_factory.mktemp("jax") / "solution.pb"
     pairs = jax_protos.read_matching_file(matches_file)
     solutions = jax_solve.solve_matches(pairs, use_mesh=False, verbose=False)
